@@ -3,8 +3,9 @@
 The JAX package `orb_slam2_tpu` is the reference this package is held
 against; this one imports torch and numpy only. Each hot kernel is a
 hand-written CUDA kernel for Hopper (`csrc/`), with a plain-PyTorch twin
-beside its wrapper (`ops/cuda_extract.py`): a CPU tensor runs the twin, a
-CUDA tensor runs the kernel.
+beside its wrapper (`ops/cuda_extract.py`, `ops/cuda_match.py`,
+`ops/cuda_pose.py`): a CPU tensor runs the twin, a CUDA tensor runs the
+kernel.
 
 Numerics: the engine's matmuls and convolutions are geometry, where TF32's
 10-bit mantissa injects ~0.1%-relative noise into every product (the JAX

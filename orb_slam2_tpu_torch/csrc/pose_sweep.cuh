@@ -1,0 +1,131 @@
+// The motion-only BA sweep shared by K6 (pose_lm.cu, `orb_pose_lm`) and K7
+// (pose_lm.cu, `orb_pose_normal_eqs`): one linearization of every edge at a
+// pose, reduced over the block to the 6x6 normal equations.
+//
+// It is the per-edge body of orb_slam2_tpu/ops/pallas_kernels.py
+// `_pose_sweep` / `_pose_hbe_kernel` (= solvers/pose_opt.py
+// `_build_normal_eqs`): residuals of the unified (u, v, uR) edge, pose
+// Jacobians for the left-multiplicative update xi = (rho, phi), Huber weights
+// on robust rounds, and the sums H (upper triangle, 21), b (6) and err.
+//
+// Traps kept from the reference:
+// - behind the camera (z <= 1e-6) invz is 0, not 1/1e-9, so no Jacobian
+//   product overflows to inf and 0 * inf never puts a NaN into H;
+// - an edge masked out or behind the camera still adds chi2 * 0, and its
+//   products unless they are all exactly 0, so a NaN in any edge (a NaN
+//   pose from a non-SPD solve, above all) makes err NaN, as 0 * NaN does in
+//   the reference, and K6's accept test rejects the step.
+//
+// Precision: float32 throughout, per edge in exactly the twin's operation
+// order (`pose_opt.normal_eq_terms`; pose_lm.cu is built with -fmad=false,
+// so nothing is contracted into an FMA), so the kernel and its twin differ
+// only in the order of the float32 sums over the edges.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace pose {
+
+constexpr int kThreads = 512;            // one CTA of 16 warps, <= 128 registers each
+constexpr int kWarps = kThreads / 32;
+constexpr int kSums = 28;                // H upper triangle 21, b 6, err 1
+
+// par: R row-major (9), t (3), fx fy cx cy bf, chi2 thresholds mono, stereo
+struct Camera {
+  float fx, fy, cx, cy, bf, d2_mono, d2_stereo;
+};
+
+__device__ __forceinline__ Camera load_camera(const float* __restrict__ par) {
+  return Camera{par[12], par[13], par[14], par[15], par[16], par[17], par[18]};
+}
+
+// Accumulate edge e's terms into acc at pose T (12 floats: R row-major, t).
+__device__ __forceinline__ void edge_terms(const float* T, const Camera& c,
+                                           const float* __restrict__ xw,
+                                           const float* __restrict__ obs, float inv_s2,
+                                           float st, float mask, bool robust, int e,
+                                           float acc[kSums]) {
+  const float x = xw[3 * e], y = xw[3 * e + 1], z = xw[3 * e + 2];
+  const float pcx = T[0] * x + T[1] * y + T[2] * z + T[9];
+  const float pcy = T[3] * x + T[4] * y + T[5] * z + T[10];
+  const float pcz = T[6] * x + T[7] * y + T[8] * z + T[11];
+  const bool depth_ok = pcz > 1e-6f;                 // false for NaN
+  const float invz = depth_ok ? 1.f / fmaxf(pcz, 1e-9f) : 0.f;
+  const float invz2 = invz * invz;
+  const float u = c.fx * pcx * invz + c.cx;
+  const float v = c.fy * pcy * invz + c.cy;
+  const float ur = u - c.bf * invz;
+  const float eu = obs[3 * e] - u, ev = obs[3 * e + 1] - v, eur = obs[3 * e + 2] - ur;
+  const float chi2 = inv_s2 * (eu * eu + ev * ev + st * eur * eur);
+  const float delta2 = st > 0.f ? c.d2_stereo : c.d2_mono;
+  float w_rob = 1.f;
+  // max(chi2, 1e-12) that keeps a NaN, as the reference's does (fmaxf drops it)
+  if (robust && !(chi2 <= delta2)) w_rob = sqrtf(delta2 / (chi2 < 1e-12f ? 1e-12f : chi2));
+  const float m = mask * (depth_ok ? 1.f : 0.f);
+  const float w = w_rob * inv_s2 * m;
+
+  const float a = c.fx * invz, b = c.fy * invz;
+  const float cu = -c.fx * pcx * invz2, d = -c.fy * pcy * invz2;
+  const float cr = cu + c.bf * invz2;
+  const float Ju[6] = {-a, 0.f, -cu, -(cu * pcy), -(a * pcz - cu * pcx), a * pcy};
+  const float Jv[6] = {0.f, -b, -d, -(-b * pcz + d * pcy), d * pcx, -b * pcx};
+  const float Jr[6] = {-a, 0.f, -cr, -(cr * pcy), -(a * pcz - cr * pcx), a * pcy};
+  acc[27] += chi2 * m;
+  // weight 0 and every factor finite: each product below is +-0 and leaves
+  // the sums as they are, so skip them (most edges of a frame are unmatched)
+  float mag = fabsf(eu) + fabsf(ev) + fabsf(eur);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) mag += fabsf(Ju[i]) + fabsf(Jv[i]) + fabsf(Jr[i]);
+  if (w == 0.f && isfinite(mag)) return;
+  const float wst = w * st;
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    // the weight multiplies each factor before any Jacobian product forms
+    const float wu = w * Ju[i], wv = w * Jv[i], wr = wst * Jr[i];
+#pragma unroll
+    for (int j = i; j < 6; ++j) acc[k++] += wu * Ju[j] + wv * Jv[j] + wr * Jr[j];
+    acc[21 + i] -= wu * eu + wv * ev + wr * eur;
+  }
+}
+
+// Sum acc over the block into out[kSums] (shared); every thread must call
+// it. red is shared scratch of kWarps * kSums floats. Ends synchronized.
+__device__ __forceinline__ void block_sum(const float acc[kSums], float* red, float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) {
+    float v = acc[k];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) red[warp * kSums + k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < kSums) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += red[w * kSums + threadIdx.x];
+    out[threadIdx.x] = s;
+  }
+  __syncthreads();
+}
+
+// One sweep at pose T (shared, visible to every thread) over E edges with a
+// per-edge mask (float or 0/1 byte): out = [H upper triangle, b, err].
+template <typename MaskT>
+__device__ __forceinline__ void sweep(const float* T, const Camera& c,
+                                      const float* __restrict__ xw,
+                                      const float* __restrict__ obs,
+                                      const float* __restrict__ inv_s2,
+                                      const float* __restrict__ stereo,
+                                      const MaskT* mask, int n_edges, bool robust,
+                                      float* red, float* out) {
+  float acc[kSums];
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
+  for (int e = threadIdx.x; e < n_edges; e += kThreads)
+    edge_terms(T, c, xw, obs, inv_s2[e], stereo[e], static_cast<float>(mask[e]), robust,
+               e, acc);
+  block_sum(acc, red, out);
+}
+
+}  // namespace pose

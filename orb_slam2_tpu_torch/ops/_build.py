@@ -1,9 +1,11 @@
 """Build and load the hand-written CUDA kernels of `orb_slam2_tpu_torch/csrc/`.
 
-The sources have a plain C interface. `nvcc` compiles all of them into one
-shared library for Hopper (`sm_90a`) at first use, under `_build/<hash>/`
-in the package (listed in `.gitignore`), keyed by a hash of the sources and
-the flags, so an edit rebuilds and an unchanged tree reuses the library.
+The sources have a plain C interface. At first use `nvcc` compiles each
+`csrc/*.cu` for Hopper (`sm_90a`), one process per source, all started
+together, and links the objects into one shared library under
+`_build/<hash>/` in the package (listed in `.gitignore`), keyed by a hash
+of the sources and the flags, so an edit rebuilds and an unchanged tree
+reuses the library.
 The library is loaded with ctypes; pointers and the CUDA stream pass as
 `c_void_p`. There is no fallback: a missing `nvcc` or a failed build raises.
 """
@@ -22,8 +24,12 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LIB_NAME = "liborb_extract.so"
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Per-source flags. -fmad=false: no multiply-add is contracted into an FMA,
+# so the pose sweep, which performs its twin's float32 operations in the
+# twin's order, rounds every per-edge term as the twin does.
+SOURCE_FLAGS = {"pose_lm.cu": ("-fmad=false",)}
+LIB_NAME = "liborb_kernels.so"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel's launcher; every one returns cudaGetLastError()
@@ -35,6 +41,17 @@ SIGNATURES = {
     "orb_dense_stage": (_P, _I, _I, _P, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P),
     # blur, h, w, ys, xs, dx, dy, n, out, stream
     "orb_brief": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P),
+    # desc_a, n, desc_b, m, mask, best, idx, second, stream
+    "orb_best_two": (_P, _I, _P, _I, _P, _P, _P, _P, _P),
+    # uv, radius, pred_level, p_ur, p_valid, p_desc, p, kp_xy, kp_level,
+    # kp_ur, kp_valid, kp_desc, n, best, idx, second, stream
+    "orb_proj_match": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                       _P, _P, _P, _P),
+    # par, xw, obs, inv_s2, stereo, valid, e, n_rounds, n_iters, pose,
+    # inliers, n_inl, chi2, stream
+    "orb_pose_lm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    # par, xw, obs, inv_s2, stereo, mask, e, robust, out, stream
+    "orb_pose_normal_eqs": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
 }
 
 
@@ -59,9 +76,10 @@ def build():
     """Compile the kernels if this source tree has not been built yet.
 
     Returns (library path, seconds spent compiling (0.0 when reused),
-    nvcc's diagnostic output: the ptxas register and shared-memory report)."""
+    nvcc's diagnostic output per source: the ptxas register, spill and
+    shared-memory report)."""
     srcs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(repr((NVCC_FLAGS, sorted(SOURCE_FLAGS.items()))).encode())
     for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
@@ -71,16 +89,33 @@ def build():
     if os.path.exists(lib):
         return lib, 0.0, ""
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [os.path.join(out_dir, os.path.basename(s)[:-3] + f".{os.getpid()}.o")
+            for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(os.path.basename(s), ()),
+                               "-c", "-o", o, s],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for s, o in zip(srcs, objs)]
+    report, failed = [], []
+    for s, p in zip(srcs, procs):
+        out, _ = p.communicate()
+        report.append(f"== {os.path.basename(s)}\n{out}")
+        if p.returncode != 0:
+            failed.append(f"{os.path.basename(s)} (exit {p.returncode})")
+    if failed:
+        raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n" + "".join(report))
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                          capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, lib)          # atomic: a concurrent loader sees all or nothing
-    return lib, seconds, proc.stdout + proc.stderr
+    return lib, seconds, "".join(report)
 
 
 @functools.lru_cache(maxsize=None)

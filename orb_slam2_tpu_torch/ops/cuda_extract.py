@@ -7,64 +7,25 @@ their wrappers (port of `orb_slam2_tpu/ops/pallas_extract.py`).
 | `dense_stage` | `dense_stage.cu`  | `pallas_extract.dense_stage_pallas`            | `dense_stage_plain` |
 | `brief`       | `brief.cu`        | `pallas_extract.brief_sample_pallas` + packing | `brief_plain`       |
 
-Each wrapper dispatches on the device of its input: a CPU tensor runs the
-twin, a CUDA tensor launches the kernel on the current stream or raises.
-There is no switch and no fallback. `LAUNCHES` counts kernel launches (one
-per launch, nowhere else), so a run can show that it went through the
-kernels. The twins are written from the reference's XLA path and are
-bit-identical to the kernels: every product and sum is rounded in the same
-order on both sides (the kernels use `__fmul_rn`/`__fadd_rn`, so no FMA).
+Each wrapper dispatches on the device of its input (`launch.py`): a CPU
+tensor runs the twin, a CUDA tensor launches the kernel on the current
+stream or raises. There is no switch and no fallback; `launch.LAUNCHES`
+counts the launches. The twins are written from the reference's XLA path
+and are bit-identical to the kernels: every product and sum is rounded in
+the same order on both sides (the kernels use `__fmul_rn`/`__fadd_rn`, so
+no FMA).
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from . import fast as fast_ops
 from . import image as image_ops
-
-LAUNCHES = {"pyramid": 0, "dense_stage": 0, "brief": 0}
+from .launch import check as _check, launch as _launch, on_cpu as _on_cpu, ptr as _p
 
 NEG = float("-inf")
 BRIEF_PAIRS = 256
 _DENSE_PAD = 5     # the dense kernel's reflect-101 halo (blur 4, FAST 3, NMS +1)
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _on_cpu(t: torch.Tensor) -> bool:
-    """True for a CPU tensor (twin), False for a CUDA tensor (kernel)."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type == "cuda":
-        return False
-    raise ValueError(f"no kernel or twin for tensors on {t.device}")
-
-
-def _check(t: torch.Tensor, dtype, shape, device, name: str):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous {dtype} tensor of shape "
-                         f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
-                         f"on {t.device} (contiguous={t.is_contiguous()})")
-
-
-def _launch(fn_name: str, device, *args):
-    from ._build import library
-    fn = getattr(library(), fn_name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
-
-
-def _p(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
 
 
 # ---------------------------------------------------------------------------
@@ -96,9 +57,8 @@ def pyramid(img, taps):
         _check(ix, torch.int32, (2, w), img.device, "pyramid ix")
         _check(wx, torch.float32, (2, w), img.device, "pyramid wx")
         out = torch.empty((h, w), dtype=torch.float32, device=img.device)
-        _launch("orb_resize_level", img.device, _p(src), sh, sw, _p(out), h, w,
-                _p(iy), _p(wy), _p(ix), _p(wx))
-        LAUNCHES["pyramid"] += 1
+        _launch("pyramid", "orb_resize_level", img.device, _p(src), sh, sw,
+                _p(out), h, w, _p(iy), _p(wy), _p(ix), _p(wx))
         pyr.append(out)
     return pyr
 
@@ -144,10 +104,9 @@ def dense_stage(img, ini_th: float, min_th: float,
     _check(taps, torch.float32, (9,), img.device, "dense_stage taps")
     score_nms, hi, blur = (torch.empty((h, w), dtype=torch.float32, device=img.device)
                            for _ in range(3))
-    _launch("orb_dense_stage", img.device, _p(img), h, w, _p(taps),
+    _launch("dense_stage", "orb_dense_stage", img.device, _p(img), h, w, _p(taps),
             float(ini_th), float(min_th), int(min_bx), int(max_bx), int(min_by),
             int(max_by), _p(score_nms), _p(hi), _p(blur))
-    LAUNCHES["dense_stage"] += 1
     return score_nms, hi, blur
 
 
@@ -197,7 +156,6 @@ def brief(blur, ys, xs, dx, dy):
     out = torch.empty((n, 8), dtype=torch.int32, device=blur.device)
     if n == 0:
         return out
-    _launch("orb_brief", blur.device, _p(blur), H, W, _p(ys), _p(xs), _p(dx),
+    _launch("brief", "orb_brief", blur.device, _p(blur), H, W, _p(ys), _p(xs), _p(dx),
             _p(dy), n, _p(out))
-    LAUNCHES["brief"] += 1
     return out

@@ -1,0 +1,60 @@
+"""What every kernel wrapper shares: device dispatch, argument checks, the
+ctypes launch and the one launch counter.
+
+Each wrapper (`cuda_extract.py`, `cuda_match.py`, `cuda_pose.py`) runs its
+plain-PyTorch twin for a CPU tensor and launches its CUDA kernel for a CUDA
+tensor, or raises: there is no switch and no fallback. `LAUNCHES` counts
+kernel launches by kernel name, one per launch and nowhere else, so a run
+can show that it went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+LAUNCHES = {"pyramid": 0, "dense_stage": 0, "brief": 0, "best_two": 0,
+            "proj_match": 0, "pose_lm": 0, "pose_normal_eqs": 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (twin), False for a CUDA tensor (kernel)."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel or twin for tensors on {t.device}")
+
+
+def check(t: torch.Tensor, dtype, shape, device, name: str, align: int = 1):
+    """Raise unless t is a contiguous tensor of this dtype and shape on
+    device whose data starts on an `align`-byte boundary (the kernels load
+    descriptor rows as 16-byte and coordinate pairs as 8-byte vectors)."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError(f"{name}: expected a contiguous {dtype} tensor of shape "
+                         f"{tuple(shape)} on {device} aligned to {align} bytes, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device} "
+                         f"(contiguous={t.is_contiguous()}, address {t.data_ptr():#x})")
+
+
+def launch(kernel: str, fn_name: str, device, *args):
+    """Call the C launcher `fn_name` on the current stream of `device` and
+    count one launch of `kernel`. The launcher returns cudaGetLastError()."""
+    from ._build import library
+    fn = getattr(library(), fn_name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
+    LAUNCHES[kernel] += 1
+
+
+def ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,170 @@
+"""Descriptor matching, dense, masked and fixed-shape (port of
+`orb_slam2_tpu/ops/matching.py`, the searches tracking runs).
+
+ORBmatcher (`src/ORBmatcher.cc`) prunes its candidates with a feature grid
+and BoW buckets; here every search is one candidate mask, Hamming distances
+(XOR + popcount over 8 words) and a best / second-best reduction. The
+reductions run in the hand-written kernels of `cuda_match.py` on a CUDA
+tensor and in their plain twins on a CPU tensor.
+
+Descriptors are the int32 view of the reference's uint32 words. Tie rules
+follow the reference: the lowest index wins an argmin, the lowest bin index
+wins a histogram tie (`lax.top_k`).
+Thresholds: TH_HIGH=100, TH_LOW=50, HISTO_LENGTH=30 (`src/ORBmatcher.cc:56-58`).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..utils.config import device_table
+from . import cuda_match
+# the plain building blocks live beside the kernels' twins that use them
+from .cuda_match import BIG, best_two, hamming_matrix, popcount32  # noqa: F401
+
+TH_HIGH = 100
+TH_LOW = 50
+HISTO_LENGTH = 30
+
+
+def fused_best_two(desc_a, desc_b, cand_mask):
+    """Hamming distances and the masked best / best index / second best in
+    one step: the K4 kernel on a CUDA tensor, its twin on a CPU tensor."""
+    return cuda_match.masked_best_two(desc_a, desc_b, cand_mask)
+
+
+def resolve_conflicts(best_idx, best_dist, accept, n_targets: int):
+    """Keep, for each target, only the accepted source with the least
+    distance, ties to the lowest source index (the reference's
+    overwrite-previous-match bookkeeping, `src/ORBmatcher.cc:700-720`)."""
+    n = best_idx.shape[0]
+    src = torch.arange(n, dtype=torch.int32, device=best_idx.device)
+    key = torch.where(accept, best_dist * n + src, torch.full_like(src, BIG * n + n))
+    target_best = torch.full((n_targets,), BIG * n + n, dtype=key.dtype,
+                             device=key.device)
+    target_best = target_best.scatter_reduce(0, best_idx.long(), key, reduce="amin")
+    return accept & (key == target_best[best_idx.long()])
+
+
+def top_k(values, k: int):
+    """`lax.top_k`: the k largest values and their indices, ties to the
+    lower index (a stable descending sort; `torch.topk` has no tie order)."""
+    vals, idx = torch.sort(values, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def rotation_consistency(angle_src, angle_dst, matched_mask, best_idx):
+    """Keep matches whose angle difference falls in the 3 dominant bins of
+    a 30-bin rotation histogram (`ORBmatcher::ComputeThreeMaxima`,
+    `src/ORBmatcher.cc:2076-2118`, with the < 0.1x pruning of bins 2, 3)."""
+    rot = angle_src - angle_dst[best_idx.long()]
+    rot = torch.where(rot < 0, rot + 360.0, rot)
+    factor = 1.0 / (360.0 / HISTO_LENGTH)
+    bins = torch.round(rot * factor).to(torch.int64)
+    bins = torch.where(bins == HISTO_LENGTH, torch.zeros_like(bins), bins)
+    counts = torch.zeros((HISTO_LENGTH,), dtype=torch.int32, device=rot.device)
+    counts = counts.scatter_add(0, bins, matched_mask.to(torch.int32))
+    top_val, top_idx = top_k(counts, 3)
+    keep = torch.stack([torch.ones_like(top_val[0], dtype=torch.bool),
+                        top_val[1] >= 0.1 * top_val[0],
+                        top_val[2] >= 0.1 * top_val[0]])
+    keep_bin = torch.zeros((HISTO_LENGTH,), dtype=torch.bool, device=rot.device)
+    keep_bin = keep_bin.index_put((top_idx,), keep)
+    return matched_mask & keep_bin[bins]
+
+
+class Matches(NamedTuple):
+    """For each of N sources: a target index, its distance and a validity
+    flag."""
+    idx: torch.Tensor    # (N,) int32 into targets
+    dist: torch.Tensor   # (N,) int32
+    valid: torch.Tensor  # (N,) bool
+
+
+def _radius(th, scale_factors, level):
+    """th * the scale factor of each source's octave (th a float or a
+    tensor; scale_factors the per-octave factors as floats)."""
+    sf = device_table(tuple(scale_factors), level.device)
+    return th * sf[torch.clamp(level, 0, sf.shape[0] - 1).long()]
+
+
+def search_by_projection_points(
+    uv, pred_level, view_cos, point_desc, point_valid, point_ur,
+    kp_xy, kp_level, kp_desc, kp_valid, kp_ur,
+    scale_factors, th: float, nn_ratio: float = 0.8, already_matched=None,
+):
+    """Local-map point -> current frame search
+    (`ORBmatcher::SearchByProjection(Frame&, vector<MapPoint*>&, th)`,
+    `src/ORBmatcher.cc:78-191`). uv (P,2) projected pixels; pred_level (P,)
+    predicted octave; view_cos (P,); point_ur (P,) projected right x or -1;
+    kp_ur (N,) keypoint right x or -1; scale_factors the octave factors.
+    The window, octave and stereo gate, the distances and the level-aware
+    best / second best run in the K5 kernel (its twin on the CPU)."""
+    radius = _radius(torch.where(view_cos > 0.998, 2.5, 4.0) * th, scale_factors,
+                     pred_level)
+    kv = kp_valid if already_matched is None else kp_valid & ~already_matched
+    best, best_idx, second_same_lvl = cuda_match.projection_best_two(
+        uv, radius, pred_level, point_ur, point_valid, point_desc,
+        kp_xy, kp_level, kp_ur, kv, kp_desc)
+    # the ratio test fires only when a second candidate shares the best's
+    # octave (src/ORBmatcher.cc:160-170)
+    ratio_ok = torch.where(second_same_lvl < BIG, best <= nn_ratio * second_same_lvl,
+                           torch.ones_like(point_valid))
+    accept = (best <= TH_HIGH) & ratio_ok & point_valid
+    keep = resolve_conflicts(best_idx, best, accept, kp_xy.shape[0])
+    return Matches(best_idx, best, keep)
+
+
+def _stereo_gate(src_ur, kp_ur, radius):
+    return torch.where((src_ur[:, None] >= 0) & (kp_ur[None, :] >= 0),
+                       torch.abs(src_ur[:, None] - kp_ur[None, :]) < radius[:, None],
+                       torch.ones((), dtype=torch.bool, device=radius.device))
+
+
+def search_by_projection_frame(
+    uv, src_level, src_desc, src_valid, src_angle, src_ur,
+    kp_xy, kp_level, kp_desc, kp_valid, kp_angle, kp_ur,
+    scale_factors, th: float, forward: bool, backward: bool,
+    check_rotation: bool = True,
+):
+    """Last-frame -> current-frame projection search of the motion model
+    (`ORBmatcher::SearchByProjection(Frame&, Frame&, th, bMono)`,
+    `src/ORBmatcher.cc:1741-1921`): window th * scale(source level), the
+    octave window of the forward/backward rule; the reduction is K4."""
+    radius = _radius(th, scale_factors, src_level)
+    win = (torch.abs(uv[:, None, 0] - kp_xy[None, :, 0]) < radius[:, None]) & \
+        (torch.abs(uv[:, None, 1] - kp_xy[None, :, 1]) < radius[:, None])
+    if forward:
+        lvl_ok = kp_level[None, :] >= src_level[:, None]
+    elif backward:
+        lvl_ok = kp_level[None, :] <= src_level[:, None]
+    else:
+        lvl_ok = (kp_level[None, :] >= src_level[:, None] - 1) & \
+            (kp_level[None, :] <= src_level[:, None] + 1)
+    cand = win & lvl_ok & _stereo_gate(src_ur, kp_ur, radius) & \
+        src_valid[:, None] & kp_valid[None, :]
+    best, best_idx, _ = fused_best_two(src_desc, kp_desc, cand)
+    accept = (best <= TH_HIGH) & src_valid
+    if check_rotation:
+        accept = rotation_consistency(src_angle, kp_angle, accept, best_idx)
+    keep = resolve_conflicts(best_idx, best, accept, kp_xy.shape[0])
+    return Matches(best_idx, best, keep)
+
+
+def search_by_node(
+    node_a, desc_a, valid_a, angle_a,
+    node_b, desc_b, valid_b, angle_b,
+    nn_ratio: float = 0.7, check_rotation: bool = True, max_dist: int = TH_LOW,
+):
+    """BoW-bucket matching (`ORBmatcher::SearchByBoW`,
+    `src/ORBmatcher.cc:255-579`): the FeatureVector's node buckets become an
+    equality mask on per-feature vocabulary node ids; the reduction is K4."""
+    cand = (node_a[:, None] == node_b[None, :]) & (node_a[:, None] >= 0)
+    cand = cand & valid_a[:, None] & valid_b[None, :]
+    best, best_idx, second = fused_best_two(desc_a, desc_b, cand)
+    accept = (best <= max_dist) & (best < nn_ratio * second) & valid_a
+    if check_rotation:
+        accept = rotation_consistency(angle_a, angle_b, accept, best_idx)
+    keep = resolve_conflicts(best_idx, best, accept, desc_b.shape[0])
+    return Matches(best_idx, best, keep)

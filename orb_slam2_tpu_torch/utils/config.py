@@ -9,6 +9,7 @@ kernel wrapper dispatches on the device of its input tensor
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
 from typing import Optional
@@ -20,6 +21,23 @@ SENSOR_RGBD = 2
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1)).bit_length()
+
+
+@functools.lru_cache(maxsize=64)
+def device_table(values: tuple, device):
+    """A float32 tensor of `values` on `device`, made once per device: a
+    fresh host-to-device copy on every call would wait for the stream."""
+    import torch
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def reciprocal_f32(v: float) -> float:
+    """1/v rounded to float32, as a Python float. The reference's XLA
+    programs divide by a compile-time constant as a multiplication by its
+    float32 reciprocal; `x * reciprocal_f32(c)` reproduces that rounding
+    where `x / c` would differ in the last bit."""
+    import numpy as np
+    return float(np.float32(1.0) / np.float32(v))
 
 
 def load_opencv_yaml(path: str) -> dict:

@@ -14,8 +14,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..mapstate.map import MapState
 from ..ops.extractor import Keypoints
 from ..pipeline.frame import FrameData
+from ..pipeline.tracking_step import TrackStepResult
 from .config import SlamConfig
 
 _DROPPED = ("use_pallas",)   # the reference's kernel switch; the port dispatches by device
@@ -29,11 +31,19 @@ def config_from_jax(cfg_obj) -> SlamConfig:
     return SlamConfig(**fields)
 
 
+_DESC = ("desc", "kf_desc", "pt_desc")   # uint32 words in the reference
+
+
 def _tensor(name, value, device):
     a = np.asarray(value)
-    if name == "desc":
+    if name in _DESC:
         a = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _array(name, t):
+    a = t.detach().cpu().numpy()
+    return a.view(np.uint32) if name in _DESC else a
 
 
 def _from_numpy(cls, rec, device):
@@ -55,8 +65,32 @@ def frame_from_numpy(frame, device="cpu") -> FrameData:
 def frame_to_numpy(frame: FrameData) -> dict:
     """The port's FrameData as a dict of NumPy arrays in the reference's
     types (descriptors back to uint32)."""
-    out = {}
-    for f in FrameData._fields:
-        a = getattr(frame, f).detach().cpu().numpy()
-        out[f] = a.view(np.uint32) if f == "desc" else a
-    return out
+    return {f: _array(f, getattr(frame, f)) for f in FrameData._fields}
+
+
+def mapstate_from_numpy(m, device="cpu") -> MapState:
+    """Port `MapState` from a reference `MapState` (or any object with its
+    31 fields as arrays): descriptors become the int32 view of their uint32
+    words, every other field keeps its dtype."""
+    return _from_numpy(MapState, m, device)
+
+
+def mapstate_to_numpy(m: MapState) -> dict:
+    """The port's MapState as a dict of NumPy arrays in the reference's
+    types (descriptors back to uint32)."""
+    return {f: _array(f, getattr(m, f)) for f in MapState._fields}
+
+
+def track_result_from_numpy(res, device="cpu") -> TrackStepResult:
+    """Port `TrackStepResult` from a reference one (map and frame included)."""
+    return TrackStepResult(**{
+        f: mapstate_from_numpy(res.m, device) if f == "m" else
+        frame_from_numpy(res.frame, device) if f == "frame" else
+        _tensor(f, getattr(res, f), device) for f in TrackStepResult._fields})
+
+
+def track_result_to_numpy(res: TrackStepResult) -> dict:
+    """The port's TrackStepResult as NumPy, the map and frame as dicts."""
+    return {f: mapstate_to_numpy(res.m) if f == "m" else
+            frame_to_numpy(res.frame) if f == "frame" else _array(f, getattr(res, f))
+            for f in TrackStepResult._fields}

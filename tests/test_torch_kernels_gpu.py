@@ -7,17 +7,29 @@ skips without one (CPU tensors route to the twins, which the other
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 
 (`--noconftest`: the suite's conftest imports JAX, which the port does not
-need). The twins round every product and sum in the kernels' order, so each
-comparison is bit-exact.
+need). The front-end twins round every product and sum in the kernels'
+order, and the matching kernels decide integers by exact compares, so those
+comparisons are bit-exact. The pose kernels sum the edges in another order
+than their twins: K6 is held to Tcw within 1e-4 and equal inlier sets except
+at the chi2 threshold, K7 to the reference's own tolerance between its XLA
+and Pallas builds (H rtol 3e-4 atol 2e-3, b atol 2e-2).
 """
 import numpy as np
 import pytest
 import torch
 
+from orb_slam2_tpu_torch.geometry import camera as camera_mod
+from orb_slam2_tpu_torch.geometry import se3
+from orb_slam2_tpu_torch.mapstate import map as mapstate
 from orb_slam2_tpu_torch.ops import cuda_extract as ce
+from orb_slam2_tpu_torch.ops import cuda_match as cm
+from orb_slam2_tpu_torch.ops import cuda_pose as cp
+from orb_slam2_tpu_torch.ops import launch
 from orb_slam2_tpu_torch.ops import extractor as ex
 from orb_slam2_tpu_torch.pipeline import frame as frame_mod
+from orb_slam2_tpu_torch.pipeline import mapping_ops, tracking_step
 from orb_slam2_tpu_torch.utils.config import SlamConfig, SENSOR_RGBD
+from orb_slam2_tpu_torch.utils.synthetic import PlateWorld, loop_trajectory
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -42,11 +54,11 @@ def _image(rng, h, w):
 def test_pyramid_kernel_bit_exact(cuda, h, w):
     img = torch.from_numpy(_image(np.random.default_rng(h), h, w)).to(cuda)
     taps = ex.pyramid_taps(ex.pyramid_sizes(h, w, 8, 1.2), cuda)
-    before = ce.LAUNCHES["pyramid"]
+    before = launch.LAUNCHES["pyramid"]
     got = ce.pyramid(img, taps)
     want = ce.pyramid_plain(img, taps)
     torch.cuda.synchronize()
-    assert ce.LAUNCHES["pyramid"] == before + 7
+    assert launch.LAUNCHES["pyramid"] == before + 7
     for lvl, (a, b) in enumerate(zip(got, want)):
         assert a.shape == b.shape
         assert torch.equal(a, b), (lvl, float((a - b).abs().max()))
@@ -109,10 +121,11 @@ def test_make_frame_rgbd_kernel_path_equals_twin_path(cuda, monkeypatch):
                      k1=0.05)
     gray = torch.from_numpy(_image(rng, h, w).astype(np.uint8)).to(cuda)
     depth = torch.from_numpy(rng.uniform(0.0, 4.0, (h, w)).astype(np.float32)).to(cuda)
-    ce.reset_launches()
+    launch.reset_launches()
     got = frame_mod.make_frame_rgbd(gray, depth, cfg)
     torch.cuda.synchronize()
-    assert ce.LAUNCHES == {"pyramid": 3, "dense_stage": 4, "brief": 4}
+    assert launch.LAUNCHES == {**dict.fromkeys(launch.LAUNCHES, 0),
+                               "pyramid": 3, "dense_stage": 4, "brief": 4}
     monkeypatch.setattr(ce, "pyramid", ce.pyramid_plain)
     monkeypatch.setattr(ce, "dense_stage", ce.dense_stage_plain)
     monkeypatch.setattr(ce, "brief", ce.brief_plain)
@@ -121,3 +134,198 @@ def test_make_frame_rgbd_kernel_path_equals_twin_path(cuda, monkeypatch):
     assert int(got.valid.sum()) > 250
     for name, a, b in zip(got._fields, got, want):
         assert torch.equal(a, b), name
+
+
+def _desc(rng, n, dev):
+    words = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(words).to(dev)
+
+
+@pytest.mark.parametrize("n,m,density", [(2048, 2048, 0.02), (130, 257, 0.5), (7, 1, 1.0)])
+def test_best_two_kernel_bit_exact(cuda, n, m, density):
+    rng = np.random.default_rng(n + m)
+    a, b = _desc(rng, n, cuda), _desc(rng, m, cuda)
+    b[: min(n, m) // 2] = a[: min(n, m) // 2] ^ 0x00010001     # near duplicates
+    mask = torch.from_numpy(rng.random((n, m)) < density).to(cuda)
+    mask[::13] = False                                        # rows masked everywhere
+    before = launch.LAUNCHES["best_two"]
+    got = cm.masked_best_two(a, b, mask)
+    want = cm.masked_best_two_plain(a, b, mask)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["best_two"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[0][0]) == cm.BIG and int(got[1][0]) == 0
+
+
+def _proj_inputs(rng, p, n, dev):
+    kp_xy = rng.uniform(0, 640, (n, 2)).astype(np.float32)
+    kp_level = rng.integers(0, 8, n).astype(np.int32)
+    kp_ur = np.where(rng.random(n) < 0.5, kp_xy[:, 0] - rng.uniform(1, 30, n), -1.0)
+    src = rng.integers(0, n, p)
+    uv = (kp_xy[src] + rng.normal(0, 6, (p, 2))).astype(np.float32)
+    p_ur = np.where(rng.random(p) < 0.5, uv[:, 0] - rng.uniform(1, 30, p), -1.0)
+    t = lambda x, dt=None: torch.from_numpy(np.ascontiguousarray(x if dt is None else
+                                                                 x.astype(dt))).to(dev)
+    kp_desc = _desc(rng, n, dev)
+    p_desc = kp_desc[torch.from_numpy(src).to(dev)] ^ _desc(rng, p, dev) & 0x01010101
+    return (t(uv), t(rng.uniform(5, 60, p), np.float32),
+            t(np.clip(kp_level[src] + rng.integers(0, 2, p), 0, 7), np.int32),
+            t(p_ur, np.float32), t(rng.random(p) < 0.8), p_desc.contiguous(),
+            t(kp_xy), t(kp_level), t(kp_ur, np.float32), t(rng.random(n) < 0.9), kp_desc)
+
+
+@pytest.mark.parametrize("p,n", [(8192, 2048), (300, 100), (33, 1)])
+def test_proj_match_kernel_bit_exact(cuda, p, n):
+    args = _proj_inputs(np.random.default_rng(p + n), p, n, cuda)
+    got = cm.projection_best_two(*args)
+    want = cm.projection_best_two_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if n > 1:
+        assert int((got[0] < 100).sum()) > p // 4 and int((got[2] < cm.BIG).sum()) > 0
+
+
+def _pose_scene(rng, n, stereo, outliers, dev, bf=40.0):
+    Xw = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(4, 15, n)],
+                  -1).astype(np.float32)
+    xi = torch.tensor([0.1, -0.05, 0.08, 0.02, -0.03, 0.01])
+    T_true = se3.exp(xi).numpy()
+    pc = Xw @ T_true[:3, :3].T + T_true[:3, 3]
+    u = 500.0 * pc[:, 0] / pc[:, 2] + 320.0
+    v = 500.0 * pc[:, 1] / pc[:, 2] + 240.0
+    ur = np.where(rng.random(n) < 0.8, u - bf / pc[:, 2], -1.0) if stereo else -np.ones(n)
+    obs = np.stack([u, v, ur], -1).astype(np.float32)
+    k = int(outliers * n)
+    obs[:k, :2] += (rng.uniform(20, 80, (k, 2)) * rng.choice([-1, 1], (k, 2))).astype(np.float32)
+    obs[k:, :2] += rng.normal(0, 0.5, (n - k, 2)).astype(np.float32)
+    level = rng.integers(0, 8, n)
+    inv_s2 = (1.0 / 1.44 ** level).astype(np.float32)
+    T0 = se3.orthonormalize(se3.retract(torch.from_numpy(T_true),
+                                        torch.tensor([0.1, -0.08, 0.05, 0.03, -0.02, 0.04])))
+    cam = camera_mod.Camera.make(500.0, 500.0, 320.0, 240.0, bf=bf if stereo else 0.0,
+                                 device=dev)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return (cam, T0.to(dev), t(Xw), t(obs), t(inv_s2), t(obs[:, 2] >= 0),
+            t(rng.random(n) < 0.95)), T_true
+
+
+@pytest.mark.parametrize("stereo,outliers,n", [(False, 0.0, 2048), (True, 0.2, 2048),
+                                               (False, 0.2, 2048), (True, 0.2, 300)])
+def test_pose_lm_kernel_within_tolerance(cuda, stereo, outliers, n):
+    args, T_true = _pose_scene(np.random.default_rng(40 + stereo), n, stereo, outliers, cuda)
+    T, inl, n_inl, chi2 = cp.pose_lm(*args, 4, 10)
+    Tp, inl_p, n_p, chi2_p = cp.pose_lm_plain(*args, 4, 10)
+    torch.cuda.synchronize()
+    assert float((T - Tp).abs().max()) <= 1e-4
+    assert float((T.cpu() - torch.from_numpy(T_true).float()).abs().max()) <= 2e-2
+    d2 = torch.where(args[5], 7.815, 5.991)
+    near = (chi2_p - d2).abs() <= 1e-3 * d2
+    assert not bool(((inl != inl_p) & ~near).any())
+    assert int(n_inl) == int(inl.sum()) and int(n_inl) > n // 2
+    k = int(outliers * n)
+    assert not bool(inl[:k].any())
+
+
+def test_pose_normal_eqs_kernel_within_tolerance(cuda):
+    args, _ = _pose_scene(np.random.default_rng(50), 2048, True, 0.1, cuda)
+    cam, T0, Xw, obs, inv_s2, st, valid = args
+    Xw[:8, 2] = -0.5                     # behind the camera: invz guarded to 0
+    mask = valid.to(torch.float32)
+    for robust in (True, False):
+        H, b, err = cp.pose_normal_eqs(cam, T0, Xw, obs, inv_s2, st, mask, robust)
+        Hp, bp, errp = cp.pose_normal_eqs_plain(cam, T0, Xw, obs, inv_s2, st, mask, robust)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(H).all())
+        torch.testing.assert_close(H, Hp, rtol=3e-4, atol=2e-3)
+        torch.testing.assert_close(b, bp, rtol=3e-4, atol=2e-2)
+        torch.testing.assert_close(err, errp, rtol=3e-4, atol=0.0)
+
+
+@pytest.mark.parametrize("case", ["rank_deficient", "nan_point"])
+def test_pose_kernels_on_degenerate_edges(cuda, case):
+    """Rank-deficient: 2 valid mono edges, H of rank 4, so the pose is not
+    unique: a finite pose, the same inliers and the same residual error as
+    the twin, and K7 within its tolerance. NaN point: every sweep's err is
+    NaN (0 * NaN, as in the reference), so K6 rejects every step and keeps
+    its seed, as the twin does; K7 there gives NaN err on both sides."""
+    args, _ = _pose_scene(np.random.default_rng(60), 2048, case == "nan_point", 0.0, cuda)
+    cam, T0, Xw, obs, inv_s2, st, valid = args
+    if case == "rank_deficient":
+        valid = torch.zeros_like(valid)
+        valid[[100, 900]] = True
+    else:
+        Xw[700] = float("nan")
+    args = (cam, T0, Xw, obs, inv_s2, st, valid)
+    T, inl, n_inl, chi2 = cp.pose_lm(*args, 4, 10)
+    Tp, inl_p, n_p, chi2_p = cp.pose_lm_plain(*args, 4, 10)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(T).all()) and torch.equal(inl, inl_p)
+    assert abs(float(chi2[inl].sum()) - float(chi2_p[inl_p].sum())) <= 1e-4
+    mask = valid.to(torch.float32)
+    H, b, err = cp.pose_normal_eqs(cam, T0, Xw, obs, inv_s2, st, mask, True)
+    Hp, bp, errp = cp.pose_normal_eqs_plain(cam, T0, Xw, obs, inv_s2, st, mask, True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(H, Hp, equal_nan=True, rtol=3e-4, atol=2e-3)
+    torch.testing.assert_close(b, bp, equal_nan=True, rtol=3e-4, atol=2e-2)
+    if case == "rank_deficient":
+        assert int(n_inl) == 2 and bool(torch.isfinite(H).all())
+        torch.testing.assert_close(err, errp, rtol=3e-4, atol=0.0)
+    else:
+        assert torch.equal(T[:3], T0[:3]) and torch.equal(Tp[:3], T0[:3])
+        assert bool(err.isnan()) and bool(errp.isnan())
+
+
+def test_tracking_step_kernel_path_equals_twin_path(cuda, monkeypatch):
+    """Initialization and two tracked frames at 240x320 on the card, through
+    the kernels and then through the twins: the same poses and bindings."""
+    h, w, fx = 240, 320, 260.0
+    cfg = SlamConfig(fx=fx, fy=fx, cx=w / 2, cy=h / 2, width=w, height=h, bf=0.25 * fx,
+                     sensor=SENSOR_RGBD, th_depth=40.0, n_features=300, max_keyframes=8,
+                     max_map_points=4096, max_local_points=1024)
+    world = PlateWorld(fx, fx, w / 2, h / 2, w, h, z0=5.0)
+    images = []
+    for T in loop_trajectory(181, radius=3.0, overshoot=0.5, spiral=0.12)[:3]:
+        gray, depth = world.render_with_depth(T)
+        images.append((torch.from_numpy(np.clip(np.round(gray), 0, 255).astype(np.uint8))
+                       .to(cuda), torch.from_numpy(depth).to(cuda)))
+
+    def run():
+        f0 = frame_mod.make_frame_rgbd(*images[0], cfg)
+        m = mapstate.empty(8, 4096, cfg.max_keypoints, device=cuda)
+        eye = torch.eye(4, device=cuda)
+        m, kf = mapping_ops.insert_keyframe(
+            cfg, m, f0, eye, torch.full((cfg.max_keypoints,), -1, dtype=torch.int32,
+                                        device=cuda), 0, 0.0, all_depth=True)
+        lm = mapstate.take(m.kf_obs, kf)
+        out, last, lp, lpv, T_last, vel = [], f0, m.pt_pos[lm.clamp(min=0).long()], lm >= 0, \
+            eye, eye
+        for i in (1, 2):
+            r = tracking_step.full_tracking_step_from_images(
+                cfg, m, images[i], last, lp, lpv, lm, T_last, vel, i > 1, kf, 30, "rgbd")
+            out.append(r)
+            m, last, lp, lpv, lm, T_last, vel, kf = (r.m, r.frame, r.next_pts,
+                                                     r.next_pts_valid, r.matched_pt, r.Tcw,
+                                                     r.next_vel, r.ref_kf)
+        return out
+
+    launch.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    for name in ("best_two", "proj_match", "pose_lm"):
+        assert launch.LAUNCHES[name] >= 2, launch.LAUNCHES
+    for name, twin in (("pyramid", ce.pyramid_plain), ("dense_stage", ce.dense_stage_plain),
+                       ("brief", ce.brief_plain), ("masked_best_two", cm.masked_best_two_plain),
+                       ("projection_best_two", cm.projection_best_two_plain),
+                       ("pose_lm", cp.pose_lm_plain)):
+        monkeypatch.setattr(ce if name in ("pyramid", "dense_stage", "brief") else
+                            cm if "best_two" in name else cp, name, twin)
+    launch.reset_launches()
+    want = run()
+    torch.cuda.synchronize()
+    assert not any(launch.LAUNCHES.values())
+    for g, w in zip(got, want):
+        assert bool(g.scalars[0]) and torch.equal(g.scalars[[0, 7, 8, 9]], w.scalars[[0, 7, 8, 9]])
+        assert float((g.Tcw - w.Tcw).abs().max()) <= 1e-3
+        assert float((g.matched_pt == w.matched_pt).float().mean()) >= 0.99
