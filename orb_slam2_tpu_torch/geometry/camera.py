@@ -29,7 +29,7 @@ class Camera(NamedTuple):
 
     @staticmethod
     def make(fx, fy, cx, cy, k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0, bf=0.0,
-             width=640, height=480, dtype=torch.float32, device="cpu"):
+             width=640, height=480, dtype=torch.float32, device="cuda"):
         f = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
         return Camera(f(fx), f(fy), f(cx), f(cy), f(k1), f(k2), f(p1), f(p2),
                       f(k3), f(bf), int(width), int(height))

@@ -24,6 +24,7 @@ import torch
 
 from ..geometry import se3
 from ..ops.cuda_match import popcount32
+from ..ops.matching import top_k
 from ..utils.config import device_table, reciprocal_f32
 
 INVALID = -1
@@ -91,7 +92,7 @@ class MapState(NamedTuple):
 
 
 def empty(max_keyframes: int, max_points: int, max_keypoints: int,
-          max_loop_edges: int = 32, device="cpu") -> MapState:
+          max_loop_edges: int = 32, device="cuda") -> MapState:
     K, P, N = max_keyframes, max_points, max_keypoints
     i32, f32 = torch.int32, torch.float32
 
@@ -154,6 +155,35 @@ def put2_drop(arr, rows, cols, values):
     return _padded(arr).index_put((rows.long(), cols.long()), values)[:-1]
 
 
+def last_writers(flat_idx, size: int):
+    """(B,) bool: True where entry b is the last entry writing its index
+    (indices in [0, size)). `index_put` with repeated indices keeps an
+    unspecified one on the card; XLA on the CPU keeps the last, and masking
+    every other writer makes that rule explicit."""
+    pos = torch.arange(flat_idx.shape[0], device=flat_idx.device)
+    last = torch.full((size,), -1, dtype=pos.dtype, device=pos.device)
+    last = last.scatter_reduce(0, flat_idx.long(), pos, reduce="amax")
+    return last[flat_idx.long()] == pos
+
+
+def put_last(arr, idx, values):
+    """put_drop where idx may repeat with different values: the last
+    writer of each index wins."""
+    n = arr.shape[0]
+    idx = idx.long()
+    keep = last_writers(idx, n + 1) | (idx == n)
+    return put_drop(arr, torch.where(keep, idx, torch.full_like(idx, n)), values)
+
+
+def put2_last(arr, rows, cols, values):
+    """put2_drop where (rows, cols) may repeat with different values: the
+    last writer of each entry wins."""
+    n, w = arr.shape[0], arr.shape[1]
+    rows, cols = rows.long(), cols.long()
+    keep = last_writers(rows * w + cols, (n + 1) * w) | (rows == n)
+    return put2_drop(arr, torch.where(keep, rows, torch.full_like(rows, n)), cols, values)
+
+
 def add_drop(arr, idx, values):
     """arr.at[idx].add(values, mode="drop") for a 1-D arr and idx in
     [0, len(arr)]. A scatter-add: the accumulating index_put sorts its
@@ -162,8 +192,11 @@ def add_drop(arr, idx, values):
 
 
 def take(arr, i):
-    """arr[i] for a 0-d index tensor i on arr's device. Indexing with a 0-d
-    tensor would read it back to the host (a sync); index_select does not."""
+    """arr[i] for a 0-d index tensor i on arr's device (or a Python int).
+    Indexing with a 0-d tensor would read it back to the host (a sync);
+    index_select does not."""
+    if not isinstance(i, torch.Tensor):
+        return arr[i]
     return arr.index_select(0, i.reshape(1).long())[0]
 
 
@@ -232,10 +265,13 @@ def shared_observers(m: MapState, point_ids, point_mask):
     return incidence_counts(m, ind)
 
 
-def update_connections(m: MapState, kf_id):
+def update_connections(m: MapState, kf_id, use_table: bool = False):
     """Recompute the covisibility weights of kf_id against every keyframe
     and set its spanning-tree parent once, to the best-sharing earlier
-    keyframe (`KeyFrame::UpdateConnections`, `src/KeyFrame.cc:411-533`)."""
+    keyframe (`KeyFrame::UpdateConnections`, `src/KeyFrame.cc:411-533`).
+    The weights are exact either way: use_table is kept for the reference's
+    signature and ignored, as there."""
+    del use_table
     w = incidence_counts(m, point_indicator(m, kf_id))
     w = torch.where(m.kf_valid, w, torch.zeros_like(w))
     w = w.index_fill(0, kf_id.view(1), 0)
@@ -250,6 +286,29 @@ def update_connections(m: MapState, kf_id):
                                          torch.full_like(own, INVALID)))
     return m._replace(covis=covis, parent=m.parent.index_copy(0, kf_id.view(1),
                                                                new_parent.view(1)))
+
+
+def covisible_keyframes(m: MapState, kf_id, k: int, min_weight: int = 1):
+    """The top-k covisible keyframes of kf_id, (k,) int32 ids (-1 below
+    min_weight) and their (k,) weights; ties to the lower id, as
+    `lax.top_k` breaks them."""
+    w = take(m.covis, kf_id)
+    w = torch.where(m.kf_valid, w, torch.zeros_like(w))
+    vals, idx = top_k(w, k)
+    return torch.where(vals >= min_weight, idx.to(torch.int32),
+                       torch.full_like(vals, INVALID)), vals
+
+
+def loop_protected_keyframes(m: MapState):
+    """(K,) bool: the keyframes of a persisted loop edge (never culled)."""
+    K = m.capacity_kf
+    le = m.loop_edges
+    prot = torch.zeros((K,), dtype=torch.bool, device=le.device)
+    yes = torch.ones((), dtype=torch.bool, device=le.device)
+    for c in range(2):
+        prot = put_drop(prot, torch.where(le[:, c] >= 0, le[:, c], torch.full_like(le[:, c], K)),
+                        yes)
+    return prot
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +376,211 @@ def bind_observations(m: MapState, kf_id, feat_idx, point_ids, mask):
 
 
 # ---------------------------------------------------------------------------
+# Point removal and fusion
+# ---------------------------------------------------------------------------
+
+def _invalid_like(t):
+    return torch.full_like(t, INVALID)
+
+
+def erase_points(m: MapState, point_mask):
+    """Invalidate the points of point_mask (P,) and clear every observation
+    of them (`MapPoint::SetBadFlag`): the full (K,N) incidence sweep."""
+    kill = point_mask & m.pt_valid
+    P = m.capacity_pt
+    obs_clear = kill[torch.clamp(m.kf_obs, 0, P - 1).long()] & (m.kf_obs >= 0)
+    return m._replace(pt_valid=m.pt_valid & ~kill,
+                      kf_obs=torch.where(obs_clear, _invalid_like(m.kf_obs), m.kf_obs))
+
+
+def replace_points(m: MapState, mapping):
+    """Point fusion (`MapPoint::Replace`) over the full incidence: mapping
+    (P,) gives each point itself or its replacement. Observations are
+    redirected; where a keyframe then observes a point twice, the lowest
+    feature keeps it. Replaced points become invalid; their visible/found
+    counts move to the replacement."""
+    K, N = m.kf_obs.shape
+    P = m.capacity_pt
+    dev = m.kf_obs.device
+    redirected = torch.where(m.kf_obs >= 0, mapping[torch.clamp(m.kf_obs, 0, P - 1).long()],
+                             _invalid_like(m.kf_obs))
+    fidx = torch.arange(N, dtype=torch.int32, device=dev).expand(K, N)
+    key = torch.where(redirected >= 0, fidx, torch.full_like(fidx, N))
+    cell = (torch.arange(K, device=dev)[:, None] * P +
+            torch.clamp(redirected, 0, P - 1).long()).reshape(-1)
+    first = torch.full((K * P,), N, dtype=torch.int32, device=dev)
+    first = first.scatter_reduce(0, cell, key.reshape(-1), reduce="amin")
+    dup = (redirected >= 0) & (fidx != first[cell].reshape(K, N))
+    replaced = mapping != torch.arange(P, dtype=mapping.dtype, device=dev)
+    tgt = torch.clamp(mapping, 0, P - 1).long()
+
+    def moved(count):
+        return torch.zeros_like(count).scatter_add(
+            0, tgt, torch.where(replaced, count, torch.zeros_like(count)))
+
+    return m._replace(
+        kf_obs=torch.where(dup, _invalid_like(redirected), redirected),
+        pt_valid=m.pt_valid & ~replaced,
+        pt_visible=m.pt_visible + moved(m.pt_visible),
+        pt_found=m.pt_found + moved(m.pt_found),
+        pt_forward=mapping[torch.clamp(m.pt_forward, 0, P - 1).long()],
+    )
+
+
+def erase_points_fast(m: MapState, point_mask, extra_row=None, max_killed: int = 4096):
+    """erase_points through the cached observation table: clear exactly the
+    listed (kf, feat) entries of the killed points, plus a direct sweep of
+    keyframe extra_row (the just-inserted one, whose bindings postdate the
+    table). A killed point whose table row is full may have unlisted
+    observations, and more than max_killed kills overflow the compaction:
+    then the full sweep runs instead. The reference's `lax.cond` is a
+    `torch.where` on the device predicate: both sides are computed (a
+    (K,N) select each)."""
+    K, P = m.capacity_kf, m.capacity_pt
+    kill = point_mask & m.pt_valid
+    sel, ok = compact_mask(kill, max_killed)
+    rows_kf = m.obs_kf[sel.long()]
+    rows_ft = m.obs_ft[sel.long()]
+    overflow = (ok & (rows_kf >= 0).all(dim=1)).any() | \
+        (kill.sum(dtype=torch.int32) > max_killed)
+
+    kf_obs = m.kf_obs
+    slow = torch.where(kill[torch.clamp(kf_obs, 0, P - 1).long()] & (kf_obs >= 0),
+                       _invalid_like(kf_obs), kf_obs)
+    on = (rows_kf >= 0) & ok[:, None]
+    fast = put2_drop(kf_obs, torch.where(on, rows_kf, torch.full_like(rows_kf, K)).reshape(-1),
+                     torch.where(on, rows_ft, torch.zeros_like(rows_ft)).reshape(-1),
+                     torch.full((), INVALID, dtype=kf_obs.dtype, device=kf_obs.device))
+    if extra_row is not None:
+        row = take(fast, extra_row)
+        row = torch.where((row >= 0) & kill[torch.clamp(row, 0, P - 1).long()],
+                          _invalid_like(row), row)
+        fast = fast.index_copy(0, extra_row.view(1), row[None])
+    return m._replace(
+        kf_obs=torch.where(overflow, slow, fast),
+        pt_valid=m.pt_valid & ~kill,
+        obs_kf=torch.where(kill[:, None], _invalid_like(m.obs_kf), m.obs_kf),
+        obs_ft=torch.where(kill[:, None], _invalid_like(m.obs_ft), m.obs_ft),
+    )
+
+
+def _left_pack(rows_kf, rows_ft):
+    """Valid entries (kf >= 0) first, in their order: a stable sort."""
+    order = torch.argsort((rows_kf < 0).to(torch.int8), dim=1, stable=True)
+    return torch.gather(rows_kf, 1, order), torch.gather(rows_ft, 1, order)
+
+
+def _obs_weight(m: MapState, kf, ft):
+    """+2 for a stereo observation, +1 for a mono one."""
+    w = m.kf_ur[torch.clamp(kf, 0, m.capacity_kf - 1).long(),
+                torch.clamp(ft, 0, m.n_feat - 1).long()]
+    return torch.where(w >= 0, 2, 1).to(torch.int32)
+
+
+def replace_points_fast(m: MapState, mapping, max_replaced: int = 2048):
+    """Point fusion (`MapPoint::Replace`) through the cached observation
+    table: rewrite exactly the replaced points' observations and patch the
+    table rows. Where a keyframe already observes the replacement, the
+    source's entry is erased (the existing binding wins,
+    `KeyFrame::ReplaceMapPointMatch`); otherwise it is rewritten to the
+    replacement. mapping must be chain-resolved. A replaced point with a
+    full table row, or more than max_replaced, takes the full-incidence
+    rewrite (computed beside the fast one and selected on the device).
+    Where two writes hit one entry (two sources of one target, or a stale
+    table), the last wins, as XLA's scatter on the CPU keeps it."""
+    K, P, W = m.capacity_kf, m.capacity_pt, OBS_W
+    dev = m.kf_obs.device
+    replaced = (mapping != torch.arange(P, dtype=mapping.dtype, device=dev)) & m.pt_valid
+    sel, ok = compact_mask(replaced, max_replaced)
+    src = torch.clamp(sel, 0, P - 1).long()
+    tgt = torch.clamp(mapping[src], 0, P - 1).long()
+    s_kf, s_ft = m.obs_kf[src], m.obs_ft[src]
+    t_kf, t_ft = m.obs_kf[tgt], m.obs_ft[tgt]
+    s_on = (s_kf >= 0) & ok[:, None]
+    t_on = (t_kf >= 0) & ok[:, None]
+    dup = (s_kf[:, :, None] == torch.where(t_on, t_kf, torch.full_like(t_kf, -2))[:, None, :]
+           ).any(dim=2) & s_on
+    overflow = (ok & (s_kf >= 0).all(dim=1)).any() | \
+        (replaced.sum(dtype=torch.int32) > max_replaced)
+
+    kf_obs = m.kf_obs
+    # the full-incidence rewrite: a changed entry that collides with the
+    # target's existing binding in that keyframe is erased
+    redirected = torch.where(kf_obs >= 0, mapping[torch.clamp(kf_obs, 0, P - 1).long()],
+                             _invalid_like(kf_obs))
+    trow = m.obs_kf[torch.clamp(redirected, 0, P - 1).long()]          # (K,N,W)
+    krow = torch.arange(K, dtype=torch.int32, device=dev)[:, None, None]
+    already = ((trow == krow) & (trow >= 0)).any(dim=-1)
+    slow = torch.where((redirected != kf_obs) & (kf_obs >= 0) & already,
+                       _invalid_like(redirected), redirected)
+    newval = torch.where(dup, torch.full_like(s_kf, INVALID), tgt[:, None].to(torch.int32))
+    fast = put2_last(kf_obs, torch.where(s_on, s_kf, torch.full_like(s_kf, K)).reshape(-1),
+                     torch.where(s_on, s_ft, torch.zeros_like(s_ft)).reshape(-1),
+                     newval.expand(s_kf.shape).reshape(-1))
+    kf_obs = torch.where(overflow, slow, fast)
+
+    # the table: target rows gain the source's entries that are not duplicates
+    add = s_on & ~dup
+    add_kf = torch.where(add, s_kf, _invalid_like(s_kf))
+    add_ft = torch.where(add, s_ft, _invalid_like(s_ft))
+    mk, mf = _left_pack(torch.cat([torch.where(t_on, t_kf, _invalid_like(t_kf)), add_kf], 1),
+                        torch.cat([torch.where(t_on, t_ft, _invalid_like(t_ft)), add_ft], 1))
+    ti = torch.where(ok, tgt, torch.full_like(tgt, P))
+    si = torch.where(ok, src, torch.full_like(src, P))
+    blank = torch.full((max_replaced, W), INVALID, dtype=torch.int32, device=dev)
+    obs_kf = put_drop(put_last(m.obs_kf, ti, mk[:, :W]), si, blank)
+    obs_ft = put_drop(put_last(m.obs_ft, ti, mf[:, :W]), si, blank)
+
+    # survivors take the replaced points' visible/found and observation weights
+    def added(values):
+        return add_drop(torch.zeros((P,), dtype=torch.int32, device=dev), ti,
+                        torch.where(ok, values, torch.zeros_like(values)))
+
+    w_add = torch.where(add_kf >= 0, _obs_weight(m, add_kf, add_ft),
+                        torch.zeros_like(add_kf)).sum(dim=1, dtype=torch.int32)
+    return m._replace(
+        kf_obs=kf_obs, obs_kf=obs_kf, obs_ft=obs_ft,
+        pt_valid=m.pt_valid & ~replaced,
+        pt_visible=m.pt_visible + added(m.pt_visible[src]),
+        pt_found=m.pt_found + added(m.pt_found[src]),
+        pt_obs_cnt=m.pt_obs_cnt + added(w_add),
+        pt_forward=mapping[torch.clamp(m.pt_forward, 0, P - 1).long()],
+    )
+
+
+def table_revalidate_points(m: MapState, pt_mask, max_pts: int = 512) -> MapState:
+    """Re-derive the cached table rows of the points in pt_mask (P,) from
+    kf_obs: entries whose keyframe no longer binds the point are dropped,
+    the row is left-packed again and the cached count loses their weights.
+    More than max_pts flagged points take the full rebuild instead (the
+    reference's `lax.cond`, here both computed and selected on the
+    device)."""
+    K, P = m.capacity_kf, m.capacity_pt
+    n = pt_mask.sum(dtype=torch.int32)
+    sel, ok = compact_mask(pt_mask, max_pts)
+    p = torch.clamp(sel, 0, P - 1).long()
+    rows_kf, rows_ft = m.obs_kf[p], m.obs_ft[p]
+    on = rows_kf >= 0
+    back = m.kf_obs[torch.clamp(rows_kf, 0, K - 1).long(),
+                    torch.clamp(rows_ft, 0, m.n_feat - 1).long()]
+    keep = on & (back == p[:, None])
+    dec = torch.where(on & ~keep, _obs_weight(m, rows_kf, rows_ft),
+                      torch.zeros_like(rows_kf)).sum(dim=1, dtype=torch.int32)
+    rows_kf, rows_ft = _left_pack(torch.where(keep, rows_kf, _invalid_like(rows_kf)),
+                                  torch.where(keep, rows_ft, _invalid_like(rows_ft)))
+    pi = torch.where(ok, p, torch.full_like(p, P))
+    fast = m._replace(obs_kf=put_drop(m.obs_kf, pi, rows_kf),
+                      obs_ft=put_drop(m.obs_ft, pi, rows_ft),
+                      pt_obs_cnt=put_drop(m.pt_obs_cnt, pi,
+                                          torch.clamp(m.pt_obs_cnt[p] - dec, min=0)))
+    slow = refresh_obs_table(m)
+    big = n > max_pts
+    return m._replace(obs_kf=torch.where(big, slow.obs_kf, fast.obs_kf),
+                      obs_ft=torch.where(big, slow.obs_ft, fast.obs_ft),
+                      pt_obs_cnt=torch.where(big, slow.pt_obs_cnt, fast.pt_obs_cnt))
+
+
+# ---------------------------------------------------------------------------
 # The cached point-major observation table
 # ---------------------------------------------------------------------------
 
@@ -343,22 +607,33 @@ def table_append_keyframe(m: MapState, kf_id) -> MapState:
 def point_observations(m: MapState, max_obs: int = 16):
     """Point-major observation lists from kf_obs: (obs_kf, obs_ft,
     obs_valid), each (P, max_obs); a point with more than max_obs
-    observations keeps its first max_obs in keyframe order. A stable sort of
-    the (K*N) incidence by point groups each point's observations in
-    keyframe order; an entry's rank in its group is its column."""
+    observations keeps its first max_obs in keyframe order. A keyframe that
+    binds a point at two features (a transient fusion duplicate) lists it
+    once, at its last feature, as the reference's placement does. A stable
+    sort of the (K*N) incidence by (point, keyframe) groups each point's
+    observations in keyframe order; the last entry of each (point,
+    keyframe) group stays, and its rank among the point's kept entries is
+    its column."""
     K, N = m.kf_obs.shape
     P = m.capacity_pt
-    flat = m.kf_obs.reshape(-1)
-    key = torch.where(flat >= 0, flat, torch.full_like(flat, P)).long()
+    dev = m.kf_obs.device
+    flat = m.kf_obs.reshape(-1).long()
+    pos = torch.arange(K * N, device=dev)
+    key = torch.where(flat >= 0, flat * K + pos // N, torch.full_like(flat, P * K))
     key_sorted, order = torch.sort(key, stable=True)
-    pos = torch.arange(K * N, device=flat.device)
-    first = torch.full((P + 1,), K * N, dtype=torch.int64, device=flat.device)
-    first = first.scatter_reduce(0, key_sorted, pos, reduce="amin")
-    rank = pos - first[key_sorted]
-    keep = (key_sorted < P) & (rank < max_obs)
-    rows = torch.where(keep, key_sorted, torch.full_like(key_sorted, P))
+    last = torch.cat([key_sorted[1:] != key_sorted[:-1],
+                      torch.ones((1,), dtype=torch.bool, device=dev)])
+    on = (key_sorted < P * K) & last
+    pt = torch.where(on, key_sorted // K, torch.full_like(key_sorted, P))
+    seen = torch.cumsum(on.to(torch.int64), 0) - 1          # index among the kept
+    first = torch.full((P + 1,), K * N, dtype=torch.int64, device=dev)
+    first = first.scatter_reduce(0, pt, torch.where(on, seen, torch.full_like(seen, K * N)),
+                                 reduce="amin")
+    rank = seen - first[pt]
+    keep = on & (rank < max_obs)
+    rows = torch.where(keep, pt, torch.full_like(pt, P))
     cols = torch.where(keep, rank, torch.zeros_like(rank))
-    blank = torch.full((P, max_obs), INVALID, dtype=torch.int32, device=flat.device)
+    blank = torch.full((P, max_obs), INVALID, dtype=torch.int32, device=dev)
     obs_kf = put2_drop(blank, rows, cols, (order // N).to(torch.int32))
     obs_ft = put2_drop(blank, rows, cols, (order % N).to(torch.int32))
     return obs_kf, obs_ft, obs_kf >= 0

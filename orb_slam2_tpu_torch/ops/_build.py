@@ -26,9 +26,11 @@ BUILD_ROOT = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Per-source flags. -fmad=false: no multiply-add is contracted into an FMA,
-# so the pose sweep, which performs its twin's float32 operations in the
-# twin's order, rounds every per-edge term as the twin does.
-SOURCE_FLAGS = {"pose_lm.cu": ("-fmad=false",)}
+# so a kernel that performs its twin's float32 operations in the twin's
+# order rounds every term as the twin does: the pose sweep (K6/K7), the
+# epipolar gate (K8) and the BA edge terms (K9).
+SOURCE_FLAGS = {name: ("-fmad=false",) for name in ("pose_lm.cu", "epi_match.cu",
+                                                     "ba_edge.cu")}
 LIB_NAME = "liborb_kernels.so"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -52,6 +54,11 @@ SIGNATURES = {
     "orb_pose_lm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
     # par, xw, obs, inv_s2, stereo, mask, e, robust, out, stream
     "orb_pose_normal_eqs": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
+    # desc1, un1, la, lb, lc, desc2, xy2, un2, sig, far, n_nb, n, best, idx,
+    # stream
+    "orb_epi_match": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
+    # par, pose_rows, xw, obs, inv_s2, stereo, mask, e, robust, out, stream
+    "orb_ba_edge": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
 }
 
 

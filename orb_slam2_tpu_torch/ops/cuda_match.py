@@ -1,16 +1,18 @@
-"""The matching kernels K4 and K5, their plain-PyTorch twins and their
+"""The matching kernels K4, K5 and K8, their plain-PyTorch twins and their
 wrappers (port of the matching half of `orb_slam2_tpu/ops/pallas_kernels.py`).
 
 | wrapper               | kernel (csrc/)  | replaces (TPU kernel)                          | twin                        |
 |-----------------------|-----------------|------------------------------------------------|-----------------------------|
 | `masked_best_two`     | `best_two.cu`   | `pallas_kernels.masked_best_two_pallas`        | `masked_best_two_plain`     |
 | `projection_best_two` | `proj_match.cu` | `pallas_kernels.projection_best_two_pallas`    | `projection_best_two_plain` |
+| `epi_best_two`        | `epi_match.cu`  | `pallas_kernels.epi_best_two_pallas`           | `epi_best_two_plain`        |
 
 Each wrapper dispatches on the device of its input (`launch.py`): a CPU
-tensor runs the twin, a CUDA tensor launches the kernel or raises. Both
-kernels return integers from exact integer and float compares, so they are
-bit-exact against their twins. Descriptors are (n, 8) int32 words, the int32
-view of the reference's uint32 bits; masks are bool.
+tensor runs the twin, a CUDA tensor launches the kernel or raises. The
+kernels return integers from exact integer compares and float compares of
+values rounded as in the twins, so they are bit-exact against them.
+Descriptors are (n, 8) int32 words, the int32 view of the reference's
+uint32 bits; masks are bool.
 """
 from __future__ import annotations
 
@@ -123,6 +125,68 @@ def projection_best_two_plain(uv, radius, pred_level, p_ur, p_valid, p_desc,
     rows = torch.arange(d.shape[0], device=d.device)
     second = d.index_put((rows, best_idx.long()), torch.full_like(best, BIG))
     return best, best_idx, second.min(dim=1).values
+
+
+def epi_candidates(un1, la, lb, lc, xy2, un2, sig, far):
+    """(N,N) bool candidate mask of one neighbour, the XLA path's gate
+    (`mapping_ops._triangulate_decide:204-220`): unbound on both sides, far
+    from the epipole, num*num/den < sig with num = la*x2 + lb*y2 + lc and
+    den = max(la*la + lb*lb, 1e-12). la/lb/lc, un1 (N,) for kf1's features;
+    xy2 (N,2), un2, sig, far (N,) for the neighbour's."""
+    num = la[:, None] * xy2[None, :, 0] + lb[:, None] * xy2[None, :, 1] + lc[:, None]
+    den = torch.clamp(la * la + lb * lb, min=1e-12)[:, None]
+    epi_ok = num * num / den < sig[None, :]
+    return un1[:, None] & un2[None, :] & epi_ok & far[None, :]
+
+
+def epi_best_two_plain(desc1, un1, la, lb, lc, desc2, xy2, un2, sig, far):
+    """Batched over B neighbours: desc1 (N,8) int32, un1 (N,) bool; la, lb,
+    lc (B,N) float32, kf1's epipolar lines in each neighbour; desc2
+    (B,N,8) int32, xy2 (B,N,2) float32, un2 (B,N) bool, sig (B,N) float32
+    (3.84 sigma^2 of the neighbour feature's octave), far (B,N) bool.
+    Returns best (B,N) and best_idx (B,N) int32; a row with no candidate
+    gives BIG / 0. One neighbour at a time, so the (N,N) temporaries are
+    the largest."""
+    best, idx = [], []
+    for b in range(la.shape[0]):
+        cand = epi_candidates(un1, la[b], lb[b], lc[b], xy2[b], un2[b], sig[b], far[b])
+        bb, ii, _ = best_two(hamming_matrix(desc1, desc2[b]), cand)
+        best.append(bb)
+        idx.append(ii)
+    n = desc1.shape[0]
+    if not best:
+        empty = torch.zeros((0, n), dtype=torch.int32, device=desc1.device)
+        return empty, empty.clone()
+    return torch.stack(best).to(torch.int32), torch.stack(idx)
+
+
+def epi_best_two(desc1, un1, la, lb, lc, desc2, xy2, un2, sig, far):
+    """Kernel wrapper of `epi_best_two_plain` (K8, `csrc/epi_match.cu`)."""
+    if on_cpu(desc1):
+        return epi_best_two_plain(desc1, un1, la, lb, lc, desc2, xy2, un2, sig, far)
+    nb, n = la.shape
+    dev = desc1.device
+    if n < 1 or (BIG + 1) * n >= 2 ** 31:
+        raise ValueError(f"epi_best_two: {n} features; the int32 key "
+                         f"dist * N + col needs 1 <= N < {2 ** 31 // (BIG + 1)}")
+    for t, dtype, shape, name, align in (
+            (desc1, torch.int32, (n, 8), "desc1", 16),
+            (un1, torch.bool, (n,), "un1", 1),
+            (la, torch.float32, (nb, n), "la", 4),
+            (lb, torch.float32, (nb, n), "lb", 4),
+            (lc, torch.float32, (nb, n), "lc", 4),
+            (desc2, torch.int32, (nb, n, 8), "desc2", 16),
+            (xy2, torch.float32, (nb, n, 2), "xy2", 8),
+            (un2, torch.bool, (nb, n), "un2", 1),
+            (sig, torch.float32, (nb, n), "sig", 4),
+            (far, torch.bool, (nb, n), "far", 1)):
+        check(t, dtype, shape, dev, f"epi_best_two {name}", align)
+    best, idx = (torch.empty((nb, n), dtype=torch.int32, device=dev) for _ in range(2))
+    if nb:
+        launch("epi_match", "orb_epi_match", dev, ptr(desc1), ptr(un1), ptr(la), ptr(lb),
+               ptr(lc), ptr(desc2), ptr(xy2), ptr(un2), ptr(sig), ptr(far), nb, n,
+               ptr(best), ptr(idx))
+    return best, idx
 
 
 def projection_best_two(uv, radius, pred_level, p_ur, p_valid, p_desc,

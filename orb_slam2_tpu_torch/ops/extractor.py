@@ -53,7 +53,7 @@ def pyramid_sizes(height: int, width: int, n_levels: int, scale_factor: float):
     return sizes
 
 
-def pyramid_taps(sizes, device="cpu"):
+def pyramid_taps(sizes, device="cuda"):
     """Per level 1.. the (iy, wy, ix, wx) resize taps from the level before
     (`image._resize_taps`), as tensors on `device`."""
     taps = []
@@ -121,7 +121,7 @@ class ORBExtractor(nn.Module):
         self.register_buffer("brief_points", torch.as_tensor(orient_brief.brief_points()))
         self.register_buffer("ic_weights", torch.as_tensor(orient_brief.ic_weights()))
         self.register_buffer("gauss", torch.as_tensor(image_ops._gaussian_kernel_1d(9, 2.0)))
-        for lvl, taps in enumerate(pyramid_taps(sizes), start=1):
+        for lvl, taps in enumerate(pyramid_taps(sizes, "cpu"), start=1):
             for name, t in zip(("iy", "wy", "ix", "wx"), taps):
                 self.register_buffer(f"resize{lvl}_{name}", t)
 

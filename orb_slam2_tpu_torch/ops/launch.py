@@ -1,7 +1,8 @@
 """What every kernel wrapper shares: device dispatch, argument checks, the
 ctypes launch and the one launch counter.
 
-Each wrapper (`cuda_extract.py`, `cuda_match.py`, `cuda_pose.py`) runs its
+Each wrapper (`cuda_extract.py`, `cuda_match.py`, `cuda_pose.py`,
+`cuda_ba.py`) runs its
 plain-PyTorch twin for a CPU tensor and launches its CUDA kernel for a CUDA
 tensor, or raises: there is no switch and no fallback. `LAUNCHES` counts
 kernel launches by kernel name, one per launch and nowhere else, so a run
@@ -14,7 +15,8 @@ import ctypes
 import torch
 
 LAUNCHES = {"pyramid": 0, "dense_stage": 0, "brief": 0, "best_two": 0,
-            "proj_match": 0, "pose_lm": 0, "pose_normal_eqs": 0}
+            "proj_match": 0, "pose_lm": 0, "pose_normal_eqs": 0, "epi_match": 0,
+            "ba_edge": 0}
 
 
 def reset_launches():

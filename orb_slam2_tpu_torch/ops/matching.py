@@ -37,14 +37,17 @@ def fused_best_two(desc_a, desc_b, cand_mask):
 def resolve_conflicts(best_idx, best_dist, accept, n_targets: int):
     """Keep, for each target, only the accepted source with the least
     distance, ties to the lowest source index (the reference's
-    overwrite-previous-match bookkeeping, `src/ORBmatcher.cc:700-720`)."""
-    n = best_idx.shape[0]
+    overwrite-previous-match bookkeeping, `src/ORBmatcher.cc:700-720`).
+    Sources lie along the last axis; leading axes are independent
+    searches."""
+    n = best_idx.shape[-1]
     src = torch.arange(n, dtype=torch.int32, device=best_idx.device)
-    key = torch.where(accept, best_dist * n + src, torch.full_like(src, BIG * n + n))
-    target_best = torch.full((n_targets,), BIG * n + n, dtype=key.dtype,
+    none = BIG * n + n
+    key = torch.where(accept, best_dist * n + src, torch.full_like(best_dist, none))
+    target_best = torch.full(best_idx.shape[:-1] + (n_targets,), none, dtype=key.dtype,
                              device=key.device)
-    target_best = target_best.scatter_reduce(0, best_idx.long(), key, reduce="amin")
-    return accept & (key == target_best[best_idx.long()])
+    target_best = target_best.scatter_reduce(-1, best_idx.long(), key, reduce="amin")
+    return accept & (key == torch.gather(target_best, -1, best_idx.long()))
 
 
 def top_k(values, k: int):
@@ -57,21 +60,24 @@ def top_k(values, k: int):
 def rotation_consistency(angle_src, angle_dst, matched_mask, best_idx):
     """Keep matches whose angle difference falls in the 3 dominant bins of
     a 30-bin rotation histogram (`ORBmatcher::ComputeThreeMaxima`,
-    `src/ORBmatcher.cc:2076-2118`, with the < 0.1x pruning of bins 2, 3)."""
-    rot = angle_src - angle_dst[best_idx.long()]
+    `src/ORBmatcher.cc:2076-2118`, with the < 0.1x pruning of bins 2, 3).
+    Matches lie along the last axis, one histogram per leading index;
+    angle_src broadcasts against them."""
+    rot = angle_src - torch.gather(angle_dst, -1, best_idx.long())
     rot = torch.where(rot < 0, rot + 360.0, rot)
     factor = 1.0 / (360.0 / HISTO_LENGTH)
     bins = torch.round(rot * factor).to(torch.int64)
     bins = torch.where(bins == HISTO_LENGTH, torch.zeros_like(bins), bins)
-    counts = torch.zeros((HISTO_LENGTH,), dtype=torch.int32, device=rot.device)
-    counts = counts.scatter_add(0, bins, matched_mask.to(torch.int32))
-    top_val, top_idx = top_k(counts, 3)
-    keep = torch.stack([torch.ones_like(top_val[0], dtype=torch.bool),
-                        top_val[1] >= 0.1 * top_val[0],
-                        top_val[2] >= 0.1 * top_val[0]])
-    keep_bin = torch.zeros((HISTO_LENGTH,), dtype=torch.bool, device=rot.device)
-    keep_bin = keep_bin.index_put((top_idx,), keep)
-    return matched_mask & keep_bin[bins]
+    lead = bins.shape[:-1]
+    counts = torch.zeros(lead + (HISTO_LENGTH,), dtype=torch.int32, device=rot.device)
+    counts = counts.scatter_add(-1, bins, matched_mask.to(torch.int32))
+    top_val, top_idx = torch.sort(counts, dim=-1, descending=True, stable=True)  # top_k order
+    keep = torch.stack([torch.ones_like(top_val[..., 0], dtype=torch.bool),
+                        top_val[..., 1] >= 0.1 * top_val[..., 0],
+                        top_val[..., 2] >= 0.1 * top_val[..., 0]], dim=-1)
+    keep_bin = torch.zeros(lead + (HISTO_LENGTH,), dtype=torch.bool, device=rot.device)
+    keep_bin = keep_bin.scatter(-1, top_idx[..., :3], keep)
+    return matched_mask & torch.gather(keep_bin, -1, bins)
 
 
 class Matches(NamedTuple):

@@ -215,7 +215,7 @@ class SlamConfig:
         kw.update(overrides)
         return SlamConfig(**kw)
 
-    def camera(self, device="cpu"):
+    def camera(self, device="cuda"):
         from ..geometry.camera import Camera
 
         return Camera.make(self.fx, self.fy, self.cx, self.cy, self.k1, self.k2,

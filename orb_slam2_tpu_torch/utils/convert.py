@@ -18,6 +18,7 @@ from ..mapstate.map import MapState
 from ..ops.extractor import Keypoints
 from ..pipeline.frame import FrameData
 from ..pipeline.tracking_step import TrackStepResult
+from ..solvers.schur_ba import BAProblem, BAResult
 from .config import SlamConfig
 
 _DROPPED = ("use_pallas",)   # the reference's kernel switch; the port dispatches by device
@@ -94,3 +95,19 @@ def track_result_to_numpy(res: TrackStepResult) -> dict:
     return {f: mapstate_to_numpy(res.m) if f == "m" else
             frame_to_numpy(res.frame) if f == "frame" else _array(f, getattr(res, f))
             for f in TrackStepResult._fields}
+
+
+def ba_problem_from_numpy(prob, device="cpu") -> BAProblem:
+    """Port `BAProblem` from a reference `BAProblem` (or any object with its
+    8 fields as arrays)."""
+    return _from_numpy(BAProblem, prob, device)
+
+
+def ba_problem_to_numpy(prob: BAProblem) -> dict:
+    """The port's BAProblem as a dict of NumPy arrays."""
+    return {f: _array(f, getattr(prob, f)) for f in BAProblem._fields}
+
+
+def ba_result_to_numpy(res: BAResult) -> dict:
+    """The port's BAResult as a dict of NumPy arrays."""
+    return {f: _array(f, getattr(res, f)) for f in BAResult._fields}

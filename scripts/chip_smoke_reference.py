@@ -1,0 +1,235 @@
+#!/usr/bin/env python3
+"""The JAX reference's numbers for `chip_smoke.py` (the PyTorch/CUDA port's
+smoke run), measured on the CPU with the reference package's XLA path.
+
+    env JAX_PLATFORMS=cpu python scripts/chip_smoke_reference.py
+
+It renders chip_smoke's frames (the reference bench's first N_FRAMES poses,
+640x480, 1000 features, RGB-D), extracts them with the port's front end (as
+the port's tests do, so both packages see the same keypoints), runs the
+reference's RGB-D initialization, tracking step and `keyframe_pass` with
+chip_smoke's keyframe rule and state chaining, and prints the values
+chip_smoke holds the port to: valid keypoints, local-map inliers and
+camera-centre error per tracked frame, and per keyframe event the points
+triangulated, points replaced by fusion, BA outlier observations erased,
+keyframes culled, and the valid points and keyframes after the event.
+
+The per-event counts come from `jax_mapping_stages`, which runs the body of
+the reference's `mapping_ops.mapping_pass` stage by stage on the same
+snapshot (the jitted pass returns none of them); the script asserts that
+every field of its map equals `keyframe_pass`'s before it records the
+numbers. The port's parity test
+(`tests/test_torch_keyframe_pass.py`) uses the same stages.
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+
+import jax
+import jax.numpy as jnp
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from orb_slam2_tpu.mapstate import map as jmap
+from orb_slam2_tpu.pipeline import frame as jframe
+from orb_slam2_tpu.pipeline import mapping_ops as jmo
+from orb_slam2_tpu.pipeline import tracking_step as jts
+from orb_slam2_tpu.geometry import se3 as jse3
+from orb_slam2_tpu.utils import config as jconfig
+
+_fuse_decide = jax.jit(jmo._fuse_decide, static_argnums=0)
+# float fields of the stage recomposition against the jitted keyframe_pass's:
+# XLA fuses the two differently, and pt_min_dist comes out one float32 ulp
+# apart (1.2e-7 relative) on ~1 % of the points; every other field is equal
+STAGE_TOL = 1e-6
+
+
+def jax_mapping_stages(cfg, m, kf_id):
+    """The reference's mapping_pass body, stage by stage (jitted pieces).
+    Returns a dict: the map after each stage ('culled_pts', 'tri', 'fused',
+    'stats', 'ba', 'out'), the inputs the port's stage functions need
+    ('covis_ids', 'tgt_ids', 'obs') and the event's counts ('n_new',
+    'n_replaced', 'n_outliers', 'n_culled', 'culled')."""
+    st = {}
+    K, P, N = m.capacity_kf, m.capacity_pt, m.n_feat
+    m = jmo.cull_map_points(cfg, m, cur_kf=kf_id)
+    st["culled_pts"] = m
+    nn = 20 if cfg.sensor == jconfig.SENSOR_MONOCULAR else 10
+    ids, _ = jmap.covisible_keyframes(m, kf_id, nn)
+    st["covis_ids"] = ids
+    m, n_new = jmo.triangulate_batch(cfg, m, kf_id, ids)
+    st["tri"], st["n_new"] = m, int(n_new)
+
+    tgt_ids, _ = jmo._fusion_targets(m, kf_id, nn, cap=3 * nn)
+    st["tgt_ids"] = tgt_ids
+    cur_pts = m.kf_obs[kf_id]
+    cnt = m.pt_obs_cnt
+    kf_obs = m.kf_obs
+    mapping = jnp.arange(P, dtype=jnp.int32)
+    st["rounds"] = []
+    for nb in np.asarray(tgt_ids):
+        if nb < 0:
+            continue
+        nbs = jnp.asarray(nb, jnp.int32)
+        dec = _fuse_decide(cfg, m._replace(kf_obs=kf_obs), cnt, nbs, cur_pts, cur_pts >= 0)
+        st["rounds"].append((int(nb), kf_obs, dec))
+        idx, bind, src, tgt, both, src_wins = dec
+        mapping = jmo._fuse_mapping_update(mapping, src, tgt, both, src_wins, P)
+        row = kf_obs[nbs].at[jnp.where(bind, idx, N)].set(src, mode="drop")
+        kf_obs = kf_obs.at[nbs].set(row)
+    m = m._replace(kf_obs=kf_obs)
+    rows = m.kf_obs[jnp.clip(tgt_ids, 0, K - 1)]
+    rows = jnp.where((tgt_ids >= 0)[:, None], rows, -1).reshape(-1)
+    present = jnp.zeros((P,), bool).at[jnp.where(rows >= 0, rows, P)].set(True, mode="drop")
+    fuse_pts, fuse_ok = jmap.compact_mask(present, cfg.max_local_points)
+    dec = _fuse_decide(cfg, m, cnt, kf_id, fuse_pts, fuse_ok)
+    st["union"] = (fuse_pts, fuse_ok, m, dec)
+    idx, bind, src, tgt, both, src_wins = dec
+    mapping = jmo._fuse_mapping_update(mapping, src, tgt, both, src_wins, P)
+    m = jmap.bind_observations(m, kf_id, idx, src, bind)
+    mapping = mapping[mapping]
+    mapping = mapping[mapping]
+    st["mapping"] = mapping
+    st["n_replaced"] = int(jnp.sum((mapping != jnp.arange(P)) & m.pt_valid))
+    st["pre_replace"] = m
+    m = jmap.replace_points_fast(m, mapping)
+    touched = jnp.concatenate([jnp.clip(tgt_ids, 0, K - 1), jnp.asarray(kf_id, jnp.int32)[None]])
+    rows = m.kf_obs[touched]
+    rows = jnp.where(rows >= 0, mapping[jnp.clip(rows, 0, P - 1)], -1)
+    rows = jnp.where(m.pt_valid[jnp.clip(rows, 0, P - 1)] & (rows >= 0), rows, -1)
+    m = m._replace(kf_obs=m.kf_obs.at[touched].set(rows))
+    st["fused"] = m
+
+    bound = m.kf_obs[kf_id]
+    pmask = jnp.zeros((P,), bool).at[jnp.where(bound >= 0, bound, P)].set(True, mode="drop")
+    obs = jmap.point_observations(m, 16)
+    m = jmap.refresh_obs_table(m, obs=obs)
+    m = jmap.update_point_descriptors(m, pmask, obs=obs)
+    m = jmap.update_point_normals(m, pmask, cfg.scale_factors, obs=obs)
+    m = jmap.update_connections(m, kf_id, use_table=True)
+    st["stats"], st["obs"] = m, obs
+    st["n_outliers"], st["n_culled"] = 0, 0
+    st["culled"] = np.zeros((K,), bool)
+    if int(m.n_keyframes) > 2:
+        m_ba = jmo.local_ba(cfg, m, kf_id, n_local=cfg.ba_local_cams,
+                            n_fixed=cfg.ba_fixed_cams, max_pts=cfg.ba_max_points,
+                            max_obs=cfg.ba_max_obs, obs=obs)
+        st["n_outliers"] = int(jnp.sum((m.kf_obs >= 0) & (m_ba.kf_obs < 0)))
+        st["ba"] = m_ba
+        m, culled = jmo.cull_keyframes(cfg, m_ba, kf_id, obs=obs)
+        if bool(jnp.any(culled)):
+            m = jmap.refresh_obs_table(m)
+        st["culled"], st["n_culled"] = np.asarray(culled), int(jnp.sum(culled))
+    st["out"] = m
+    return st
+
+
+def jax_frame(f):
+    """A reference FrameData from the port's (descriptors as uint32)."""
+    from orb_slam2_tpu_torch.utils import convert
+    return jframe.FrameData(**{k: jnp.asarray(v) for k, v in convert.frame_to_numpy(f).items()})
+
+
+def jax_last(cfg, m, f, Tcw, matched):
+    """The next frame's inputs after a keyframe (SlamSystem._set_last)."""
+    P = m.capacity_pt
+    pos = m.pt_pos[jnp.clip(matched, 0, P - 1)]
+    has = (matched >= 0) & m.pt_valid[jnp.clip(matched, 0, P - 1)]
+    z = jnp.maximum(f.depth, 1e-6)
+    pc = jnp.stack([(f.xy[:, 0] - cfg.cx) / cfg.fx * z, (f.xy[:, 1] - cfg.cy) / cfg.fy * z, z],
+                   -1)
+    pw = jse3.apply(jse3.inverse(Tcw), pc)
+    temporal = (f.depth > 0) & (f.depth < cfg.th_depth * cfg.baseline) & ~has & f.valid
+    return jnp.where(temporal[:, None], pw, pos), has | temporal
+
+
+def copy_map(m):
+    """keyframe_pass donates its map: hand it a copy."""
+    return jax.tree.map(jnp.copy, m)
+
+
+def assert_same_map(got, want, what):
+    """Every MapState field of got equals want's: integer and bool fields
+    exactly, float fields within STAGE_TOL (relative and absolute)."""
+    for name in jmap.MapState._fields:
+        g, w = np.asarray(getattr(got, name)), np.asarray(getattr(want, name))
+        if np.issubdtype(w.dtype, np.floating):
+            np.testing.assert_allclose(g, w, rtol=STAGE_TOL, atol=STAGE_TOL,
+                                       err_msg=f"{what}: {name}")
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=f"{what}: {name}")
+
+
+def event_numbers(st, m_after):
+    """One keyframe event's record: the stage counts and the map after."""
+    return [st["n_new"], st["n_replaced"], st["n_outliers"], st["n_culled"],
+            int(m_after.n_points), int(m_after.n_keyframes)]
+
+
+def main():
+    import torch
+    import chip_smoke as cs
+    from orb_slam2_tpu_torch.pipeline import frame as tframe
+    from orb_slam2_tpu_torch.utils import convert
+
+    t0 = time.perf_counter()
+    tcfg = cs.bench_config()
+    jcfg = jconfig.SlamConfig(use_pallas=0, **{
+        k: getattr(tcfg, k) for k in ("fx", "fy", "cx", "cy", "width", "height", "bf", "sensor",
+                                      "fps", "th_depth", "n_features", "max_keyframes",
+                                      "max_map_points")})
+    assert convert.config_from_jax(jcfg) == tcfg
+    poses, frames = cs.render_frames()
+    tf = [tframe.make_frame_rgbd(torch.from_numpy(g), torch.from_numpy(d), tcfg)
+          for g, d in frames]
+    jf = [jax_frame(f) for f in tf]
+    N = jcfg.max_keypoints
+    eye = jnp.eye(4, dtype=jnp.float32)
+    m = jmap.empty(jcfg.max_keyframes, jcfg.max_map_points, N)
+    m, kf = jmo.insert_keyframe(jcfg, m, jf[0], eye, jnp.full((N,), -1, jnp.int32), 0, 0.0,
+                                all_depth=True)
+    lm = m.kf_obs[kf]
+    lp, lpv = jax_last(jcfg, m, jf[0], eye, lm)
+    last, T_last, vel, has_vel, ref = jf[0], eye, eye, False, kf
+    valid = [int(f.valid.sum()) for f in tf[:cs.N_FRONT]]
+    inliers, errs, events = [], [], []
+    for i in range(1, len(jf)):
+        r = jts.full_tracking_step(jcfg, copy_map(m), jf[i], last, lp, lpv, lm, T_last, vel,
+                                   jnp.asarray(has_vel), ref, 30)
+        m = r.m
+        inliers.append(int(r.scalars[3]))
+        errs.append(cs._centre_error(torch.from_numpy(np.array(r.Tcw)), poses[0], poses[i]))
+        assert int(r.scalars[0]) == 1, f"frame {i} lost"
+        if i % cs.KF_EVERY == 0:
+            m_pre, kf_new = jmo.insert_keyframe(jcfg, copy_map(m), jf[i], r.Tcw, r.matched_pt, i,
+                                                i / jcfg.fps, update_stats=False,
+                                                table_fresh=True)
+            st = jax_mapping_stages(jcfg, m_pre, kf_new)
+            m, culled, summary = jmo.keyframe_pass(jcfg, copy_map(m), jf[i], r.Tcw,
+                                                   r.matched_pt, i, i / jcfg.fps)
+            assert_same_map(st["out"], m, f"event at frame {i}, stages vs keyframe_pass")
+            np.testing.assert_array_equal(st["culled"], np.asarray(culled))
+            events.append(event_numbers(st, m))
+            print(f"event at frame {i}: {events[-1]} (the stage recomposition's map equals "
+                  f"keyframe_pass's)", flush=True)
+            kf = summary[0]
+            lm = m.kf_obs[kf]
+            lp, lpv = jax_last(jcfg, m, jf[i], r.Tcw, lm)
+            ref = kf
+        else:
+            lm, lp, lpv, ref = r.matched_pt, r.next_pts, r.next_pts_valid, r.ref_kf
+        last, T_last, vel, has_vel = jf[i], r.Tcw, r.next_vel, True
+    print(f"jax {jax.__version__}, {time.perf_counter() - t0:.0f} s")
+    print(f"REFERENCE_VALID = {valid}")
+    print(f"REFERENCE_LOCAL_INLIERS = {inliers}")
+    print(f"REFERENCE_TRANS_ERR_M = {[round(e, 5) for e in errs]}")
+    print(f"REFERENCE_EVENTS = {events}")
+
+
+if __name__ == "__main__":
+    main()

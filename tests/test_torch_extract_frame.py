@@ -172,7 +172,8 @@ def test_undistort_pixels_matches():
     k = dict(k1=0.2624, k2=-0.9531, p1=-0.0054, p2=0.0026, k3=1.1633)
     ref = jcamera.undistort_pixels(jcamera.Camera.make(517.3, 516.5, 318.6, 255.3, **k),
                                    jnp.asarray(uv))
-    got = tcamera.undistort_pixels(tcamera.Camera.make(517.3, 516.5, 318.6, 255.3, **k),
+    got = tcamera.undistort_pixels(tcamera.Camera.make(517.3, 516.5, 318.6, 255.3, **k,
+                                                       device="cpu"),
                                    torch.from_numpy(uv))
     # f32 fixed-point iteration, FMA contraction on the XLA side: 1e-3 px
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-3)
@@ -197,7 +198,7 @@ def test_config_matches_reference(tmp_path):
         assert cfg_g.level_sigma2 == cfg_r.level_sigma2
         assert cfg_g.max_keypoints == cfg_r.max_keypoints
         assert cfg_g.mapper_busy_frames_effective == cfg_r.mapper_busy_frames_effective
-    cam = got.camera()
+    cam = got.camera(device="cpu")
     assert float(cam.fx) == np.float32(517.306408) and cam.width == 640
 
 

@@ -12,7 +12,12 @@ order, and the matching kernels decide integers by exact compares, so those
 comparisons are bit-exact. The pose kernels sum the edges in another order
 than their twins: K6 is held to Tcw within 1e-4 and equal inlier sets except
 at the chi2 threshold, K7 to the reference's own tolerance between its XLA
-and Pallas builds (H rtol 3e-4 atol 2e-3, b atol 2e-2).
+and Pallas builds (H rtol 3e-4 atol 2e-3, b atol 2e-2). K8 decides integers
+from float32 values rounded as in its twin: bit-exact. K9 performs its
+twin's per-edge float32 operations in order: each block of its (64,E) rows
+within 1e-5 of the block's largest magnitude (entries reach 1e8, and an
+entry that is zero edge by edge holds only rounding noise), NaN where the
+twin has NaN.
 """
 import numpy as np
 import pytest
@@ -21,6 +26,7 @@ import torch
 from orb_slam2_tpu_torch.geometry import camera as camera_mod
 from orb_slam2_tpu_torch.geometry import se3
 from orb_slam2_tpu_torch.mapstate import map as mapstate
+from orb_slam2_tpu_torch.ops import cuda_ba as cb
 from orb_slam2_tpu_torch.ops import cuda_extract as ce
 from orb_slam2_tpu_torch.ops import cuda_match as cm
 from orb_slam2_tpu_torch.ops import cuda_pose as cp
@@ -329,3 +335,154 @@ def test_tracking_step_kernel_path_equals_twin_path(cuda, monkeypatch):
         assert bool(g.scalars[0]) and torch.equal(g.scalars[[0, 7, 8, 9]], w.scalars[[0, 7, 8, 9]])
         assert float((g.Tcw - w.Tcw).abs().max()) <= 1e-3
         assert float((g.matched_pt == w.matched_pt).float().mean()) >= 0.99
+
+
+def _epi_inputs(rng, b, n, dev):
+    """K8's arguments: each row's epipolar line passes near one target that
+    resembles it; every third kf1 feature bound (no candidate)."""
+    desc1 = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+    desc2 = rng.integers(0, 2 ** 32, (b, n, 8), dtype=np.uint32)
+    flips = rng.integers(0, 2 ** 32, (b, n, 8), dtype=np.uint32) & \
+        rng.integers(0, 2 ** 32, (b, n, 8), dtype=np.uint32)
+    j0 = rng.integers(0, n, (b, n))
+    for k in range(b):
+        desc2[k, j0[k]] = desc1 ^ flips[k]
+    xy2 = np.stack([rng.uniform(0, 640, (b, n)), rng.uniform(0, 480, (b, n))], -1)
+    x0, y0 = (np.take_along_axis(xy2[..., c], j0, 1) for c in (0, 1))
+    ang, scale = rng.uniform(0, np.pi, (b, n)), rng.uniform(1e-3, 10.0, (b, n))
+    la, lb = np.cos(ang) * scale, np.sin(ang) * scale
+    lc = -(la * x0 + lb * y0) + rng.normal(0, 1.5, (b, n)) * scale
+    t = lambda a, dt=np.float32: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+    return (t(desc1.view(np.int32), np.int32), t(np.arange(n) % 3 != 0, bool), t(la), t(lb),
+            t(lc), t(desc2.view(np.int32), np.int32), t(xy2), t(rng.random((b, n)) < 0.8, bool),
+            t(3.84 * 1.44 ** rng.integers(0, 8, (b, n))), t(rng.random((b, n)) < 0.9, bool))
+
+
+@pytest.mark.parametrize("b,n", [(10, 2048), (3, 256), (2, 1)])
+def test_epi_match_kernel_bit_exact(cuda, b, n):
+    args = _epi_inputs(np.random.default_rng(n), b, n, cuda)
+    cases = [args, (args[0], torch.zeros_like(args[1])) + args[2:],          # no candidate
+             args[:9] + (torch.zeros_like(args[9]),)]                        # all near epipoles
+    for a in cases:
+        before = launch.LAUNCHES["epi_match"]
+        got, want = cm.epi_best_two(*a), cm.epi_best_two_plain(*a)
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES["epi_match"] == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert int((cm.epi_best_two(*args)[0] < cm.BIG).sum()) > 0 or n == 1
+
+
+def _ba_inputs(rng, q, o, dev, robust):
+    """K9's arguments at E = q * o edges: 16 cameras, points 4-15 m ahead,
+    5 % behind their camera, 1 % of the edges masked, 30 % stereo."""
+    e = q * o
+    T = se3.exp(torch.from_numpy(rng.normal(0, 0.1, (16, 6)).astype(np.float32)))
+    rows = torch.cat([T[:, :3, :3].reshape(16, 9), T[:, :3, 3]], 1)[rng.integers(0, 16, e)].T
+    X = np.stack([rng.uniform(-3, 3, q), rng.uniform(-2, 2, q), rng.uniform(4, 15, q)], -1)
+    X[: max(q // 20, 1), 2] = -1.5
+    obs = np.stack([rng.uniform(0, 640, e), rng.uniform(0, 480, e),
+                    np.where(rng.random(e) < 0.3, rng.uniform(0, 640, e), -1.0)], 0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    cam = camera_mod.Camera.make(517.3, 517.3, 320.0, 240.0, bf=129.3, device=dev)
+    return (cam, rows.contiguous().to(dev), t(np.repeat(X, o, 0).T), t(obs),
+            t(1.0 / 1.44 ** rng.integers(0, 8, e)), t(obs[2] >= 0), t(rng.random(e) > 0.01),
+            robust)
+
+
+def _ba_close(got, want):
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    g, w = torch.nan_to_num(got), torch.nan_to_num(want)
+    for lo, hi in ((cb.BA_ROW_HCC, cb.BA_ROW_W), (cb.BA_ROW_W, cb.BA_ROW_HPP),
+                   (cb.BA_ROW_HPP, cb.BA_ROW_BC), (cb.BA_ROW_BC, cb.BA_ROW_BP),
+                   (cb.BA_ROW_BP, cb.BA_ROW_ERR)):
+        assert float((g[lo:hi] - w[lo:hi]).abs().max()) <= 1e-5 * float(w[lo:hi].abs().max())
+    for r in (cb.BA_ROW_ERR, cb.BA_ROW_CHI2):
+        assert bool(((g[r] - w[r]).abs() <= 1e-5 * w[r].abs()).all())
+    assert torch.equal(got[cb.BA_ROW_DEPTH], want[cb.BA_ROW_DEPTH])
+
+
+@pytest.mark.parametrize("case", ["robust", "plain", "all_masked", "nan_point", "tiny"])
+def test_ba_edge_kernel_within_tolerance(cuda, case):
+    rng = np.random.default_rng(9)
+    q, o = (3, 1) if case == "tiny" else (4096, 12)
+    args = _ba_inputs(rng, q, o, cuda, case != "plain")
+    if case == "all_masked":
+        args = args[:6] + (torch.zeros_like(args[6]), True)
+    if case == "nan_point":
+        args[2][:, 12 * 7:12 * 8] = float("nan")
+    before = launch.LAUNCHES["ba_edge"]
+    got, want = cb.ba_edge_terms(*args), cb.ba_edge_terms_plain(*args)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["ba_edge"] == before + 1 and got.shape == (64, q * o)
+    _ba_close(got, want)
+    err = float(got[cb.BA_ROW_ERR].sum())
+    if case == "nan_point":
+        assert np.isnan(err)
+    elif case == "all_masked":
+        assert err == 0.0 and not bool(got[:cb.BA_ROW_ERR].any())
+
+
+def test_keyframe_pass_kernel_path_equals_twin_path(cuda, monkeypatch):
+    """Initialization, four tracked frames and two keyframe events (local BA
+    on the second) at 240x320 on the card, through the kernels and then
+    through the twins: the same event statistics and map."""
+    h, w, fx = 240, 320, 260.0
+    cfg = SlamConfig(fx=fx, fy=fx, cx=w / 2, cy=h / 2, width=w, height=h, bf=0.25 * fx,
+                     sensor=SENSOR_RGBD, th_depth=40.0, n_features=300, max_keyframes=16,
+                     max_map_points=4096, max_local_points=1024, ba_local_cams=4,
+                     ba_fixed_cams=4, ba_max_points=1024, ba_max_obs=8)
+    world = PlateWorld(fx, fx, w / 2, h / 2, w, h, z0=5.0)
+    images = []
+    for T in loop_trajectory(181, radius=3.0, overshoot=0.5, spiral=0.12)[:5]:
+        gray, depth = world.render_with_depth(T)
+        images.append((torch.from_numpy(np.clip(np.round(gray), 0, 255).astype(np.uint8))
+                       .to(cuda), torch.from_numpy(depth).to(cuda)))
+
+    def run():
+        f0 = frame_mod.make_frame_rgbd(*images[0], cfg)
+        m = mapstate.empty(16, 4096, cfg.max_keypoints, device=cuda)
+        eye = torch.eye(4, device=cuda)
+        m, kf = mapping_ops.insert_keyframe(
+            cfg, m, f0, eye, torch.full((cfg.max_keypoints,), -1, dtype=torch.int32,
+                                        device=cuda), 0, 0.0, all_depth=True)
+        lm = mapstate.take(m.kf_obs, kf)
+        last, lp, lpv, T_last, vel = f0, m.pt_pos[lm.clamp(min=0).long()], lm >= 0, eye, eye
+        summaries = []
+        for i in range(1, 5):
+            r = tracking_step.full_tracking_step_from_images(
+                cfg, m, images[i], last, lp, lpv, lm, T_last, vel, i > 1, kf, 30, "rgbd")
+            m, lm, lp, lpv, kf = r.m, r.matched_pt, r.next_pts, r.next_pts_valid, r.ref_kf
+            if i % 2 == 0:
+                m, _, summary = mapping_ops.keyframe_pass(cfg, m, r.frame, r.Tcw, r.matched_pt,
+                                                          i, i / 30)
+                summaries.append(summary)
+                kf = summary[0]
+                lm = mapstate.take(m.kf_obs, kf)
+                lp, lpv = m.pt_pos[lm.clamp(min=0).long()], lm >= 0
+            last, T_last, vel = r.frame, r.Tcw, r.next_vel
+        return m, torch.stack(summaries)
+
+    launch.reset_launches()
+    m_k, s_k = run()
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["epi_match"] == 2 and launch.LAUNCHES["ba_edge"] == 17
+    for mod, name, twin in ((ce, "pyramid", ce.pyramid_plain),
+                            (ce, "dense_stage", ce.dense_stage_plain),
+                            (ce, "brief", ce.brief_plain),
+                            (cm, "masked_best_two", cm.masked_best_two_plain),
+                            (cm, "projection_best_two", cm.projection_best_two_plain),
+                            (cm, "epi_best_two", cm.epi_best_two_plain),
+                            (cp, "pose_lm", cp.pose_lm_plain),
+                            (cb, "ba_edge_terms", cb.ba_edge_terms_plain)):
+        monkeypatch.setattr(mod, name, twin)
+    launch.reset_launches()
+    m_t, s_t = run()
+    torch.cuda.synchronize()
+    assert not any(launch.LAUNCHES.values())
+    assert int(s_k[1, 6]) > 0                       # BA erased outliers
+    assert float((s_k - s_t).abs().max()) <= 0.25 * float(s_k.abs().max())
+    assert torch.equal(s_k[:, :4], s_t[:, :4])
+    keep = m_k.pt_valid & m_t.pt_valid
+    assert float(keep.float().mean()) >= 0.9 * float(m_k.pt_valid.float().mean())
+    assert float((m_k.pt_pos[keep] - m_t.pt_pos[keep]).abs().max()) <= 1e-2

@@ -48,7 +48,7 @@ def _close(got, want, rtol=1e-6, atol=0.0):
 
 def _cams(bf):
     return (jcamera.Camera.make(500.0, 500.0, 320.0, 240.0, bf=bf),
-            tcamera.Camera.make(500.0, 500.0, 320.0, 240.0, bf=bf))
+            tcamera.Camera.make(500.0, 500.0, 320.0, 240.0, bf=bf, device="cpu"))
 
 
 def make_scene(rng, n=256, stereo=False, bf=40.0, outliers=0.0):
@@ -218,7 +218,8 @@ def test_pose_normal_eqs_twin_matches_pallas_kernel():
     rng = np.random.default_rng(30)
     E = 256
     jcam = jcamera.Camera.make(300.0, 300.0, 160.0, 120.0, 0, 0, 0, 0, 0, 30.0, 320, 240)
-    tcam = tcamera.Camera.make(300.0, 300.0, 160.0, 120.0, 0, 0, 0, 0, 0, 30.0, 320, 240)
+    tcam = tcamera.Camera.make(300.0, 300.0, 160.0, 120.0, 0, 0, 0, 0, 0, 30.0, 320, 240,
+                               device="cpu")
     Xw = (rng.normal(0, 1.0, (E, 3)) + [0, 0, 5.0]).astype(np.float32)
     Xw[:8, 2] = -0.5
     T = np.eye(4, dtype=np.float32)

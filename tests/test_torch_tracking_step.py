@@ -123,7 +123,7 @@ def test_mapstate_and_result_round_trip(seq):
     _fields_equal(back["frame"], seq["r1"].frame, atol=0)
     for name in ("Tcw", "matched_pt", "next_pts", "scalars", "next_vel"):
         np.testing.assert_array_equal(back[name], np.asarray(getattr(seq["r1"], name)))
-    empty = tmap.empty(8, 64, 32)
+    empty = tmap.empty(8, 64, 32, device="cpu")
     for name in tmap.MapState._fields:              # the same record, empty
         w = np.asarray(getattr(jmap.empty(8, 64, 32), name))
         g = convert.mapstate_to_numpy(empty)[name]
