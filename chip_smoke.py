@@ -34,7 +34,9 @@ Phases (each prints its result; any failure exits non-zero):
                step, and per keyframe event, on the kernel path and the twin
                path, device time and idle share, and each kernel against its
                twin at the main path's shapes, beside its bound (the bytes
-               and operations its function needs on this run's inputs).
+               and operations its function needs on this run's inputs);
+               K2 and K3 also over a whole frame's levels, K5 at fusion's
+               union, K6 split by its schedule (1x0, 2x0, 1x10, 4x10).
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -1193,10 +1195,54 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
                                  f"{bound_ms:.4f} ms: the bound counts work the function "
                                  f"does not need")
     fusion = recorded["proj_match@event"][-1]
+    union_ms = _queued_ms(lambda: cm.projection_best_two(*fusion))
+    per_call["proj_match"]["fusion_union_device_ms"] = union_ms
     log(f"[timing] {card}: proj_match at fusion's union ({fusion[0].shape[0]} points x "
         f"{fusion[6].shape[0]} keypoints): kernel {_event_ms(lambda: cm.projection_best_two(*fusion)):.4f}"
-        f" ms, twin {_event_ms(lambda: cm.projection_best_two_plain(*fusion), 10):.4f} ms per call")
+        f" ms, twin {_event_ms(lambda: cm.projection_best_two_plain(*fusion), 10):.4f} ms per call; "
+        f"device time kernel {union_ms:.4f} ms (queued)")
+    per_call["pose_lm"]["split"] = k6_split(k6, card)
+    frame_sums(cfg, levels, ext, per_call, card)
     return per_call
+
+
+def k6_split(k6, card):
+    """K6's time split by its schedule (rounds x iterations), on the queued
+    clock: 1x0 is the launch, one sweep and the reclassification; 2x0 adds a
+    sweep (with its reduction and barriers) and a reclassification; the
+    slope from 1x0 to 1x10 is one LM iteration, a sweep plus the 6x6 solve,
+    the retract and the accept test."""
+    split = {f"{r}x{i}_ms": _queued_ms(lambda r=r, i=i: cp.pose_lm(*k6[:7], r, i))
+             for r, i in ((1, 0), (2, 0), (1, 10), (4, 10))}
+    split["per_iteration_ms"] = (split["1x10_ms"] - split["1x0_ms"]) / 10
+    split["per_sweep_ms"] = split["2x0_ms"] - split["1x0_ms"]
+    split["solve_ms"] = split["per_iteration_ms"] - split["per_sweep_ms"]
+    log(f"[timing] {card}: pose_lm split (E={k6[2].shape[0]}, device time, queued): " +
+        ", ".join(f"{k[:-3]} {v:.4f} ms" for k, v in split.items() if "x" in k) +
+        f"; one LM iteration {split['per_iteration_ms'] * 1e3:.2f} us = a sweep "
+        f"{split['per_sweep_ms'] * 1e3:.2f} us + the solve, retract and accept "
+        f"{split['solve_ms'] * 1e3:.2f} us")
+    return split
+
+
+def frame_sums(cfg, levels, ext, per_call, card):
+    """K2 and K3 over every level of frame 0, as one frame runs them: device
+    time (queued clock) and bound per frame, beside the level-0 call."""
+    dense = [(lv, cfg.ini_th_fast, cfg.min_th_fast, *_region(*lv.shape)) for lv, *_ in levels]
+    for name, calls, bounds in (
+            ("dense_stage", [lambda a=a: ce.dense_stage(*a, taps=ext.gauss) for a in dense],
+             [_bound(_nbytes(a[0], ext.gauss, ce.dense_stage(*a, taps=ext.gauss)),
+                     124 * a[0].numel())[0] for a in dense]),
+            ("brief", [lambda a=lvl[1:]: ce.brief(*a) for lvl in levels],
+             [_bound(_brief_bytes(*lvl[1:]), 1024 * lvl[2].shape[0])[0] for lvl in levels])):
+        ms = _queued_ms(lambda calls=calls: [c() for c in calls])
+        per_call[name].update(frame_device_ms=ms, frame_bound_ms=sum(bounds),
+                              frame_launches=len(calls))
+        log(f"[timing] {card}: {name} per frame ({len(calls)} levels): device time {ms:.4f} ms "
+            f"(queued), bound {sum(bounds):.4f} ms")
+        if ms < sum(bounds):
+            raise AssertionError(f"{name}: device time per frame {ms:.4f} ms below its bound "
+                                 f"{sum(bounds):.4f} ms")
 
 
 def k7_path(recorded):

@@ -1,7 +1,7 @@
 // K6: the whole motion-only BA in one launch (replaces
 // orb_slam2_tpu/ops/pallas_kernels.py `pose_lm_pallas`, `_pose_lm_kernel`),
 // and K7: one normal-equation sweep (replaces `pose_normal_eqs_pallas`,
-// `_pose_hbe_kernel`). Both run the sweep of pose_sweep.cuh.
+// `_pose_hbe_kernel`). Both run the per-edge terms of pose_sweep.cuh.
 //
 // K6 is `Optimizer::PoseOptimization` (src/Optimizer.cc:375-622) as the
 // reference schedules it: n_rounds rounds of n_iters Levenberg-Marquardt
@@ -11,12 +11,24 @@
 // accepts it only if the error drops (a NaN from a non-SPD system fails
 // err_new < err and is rejected), halving or quadrupling lambda.
 //
-// Bound: latency. E <= 2048 edges, 44 sweeps of ~200 flops per edge and a
-// 28-value block reduction each, with serial 6x6 work between them: one
-// persistent CTA of 512 threads holds the whole schedule, so the per-step
-// host graph (solve, retract, accept) never exists. Thread 0 does the
-// scalar work; the pose reaches the block through shared memory.
+// Bound: latency. E <= 2048 edges, 44 sweeps of ~250 operations per edge and
+// a 28-value reduction each, with serial 6x6 work between them. Design: one
+// thread-block cluster of 8 CTAs x 256 threads on 8 SMs, one edge per
+// thread, loaded once into registers (an E above 2048 loops over the rest
+// from global memory). Per sweep: a warp reduce-scatter, one CTA barrier,
+// each CTA's partial written into slot [rank] of every CTA's shared memory
+// (distributed shared memory, slots double-buffered by sweep parity so a
+// CTA that runs ahead never overwrites a slot still to be read), one
+// cluster barrier, the 8 partials summed in rank order, and a second CTA
+// barrier to share the sum. Every thread then runs the accept test, the
+// Cholesky solve and the retract itself on sums that are equal bit for bit
+// everywhere, so no barrier broadcasts a pose. The sums run in a fixed
+// order with no atomics: two launches give the same bits. Needs sm_90.
+#include <cooperative_groups.h>
+
 #include "pose_sweep.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -24,39 +36,60 @@ using pose::kSums;
 using pose::kThreads;
 using pose::kWarps;
 
+constexpr int kCtas = 8;                          // K6: one cluster of 8 CTAs, on 8 SMs
+constexpr int kCtaThreads = 256;                  // one edge per thread at E <= 2048
+constexpr int kCtaWarps = kCtaThreads / 32;
+constexpr int kEdgesInRegisters = kCtas * kCtaThreads;
+constexpr int kPad = 32;                          // the 28 sums padded to a warp
+
 // Damped Cholesky solve of (H + lam diag(H) + 1e-10 I) dx = b, H given as
-// its upper triangle (row-major, 21).
-__device__ void chol6_solve(const float* Hu, const float* b, float lam, float* dx) {
-  float A[6][6], L[6][6], y[6];
+// its upper triangle (row-major, 21). Inlined and unrolled: its arrays are
+// registers. Each pivot's reciprocal comes from one rsqrt and multiplies
+// every later use, so the critical path holds no IEEE division (the twin
+// solves by LU: the two agree to rounding, not bit for bit). A non-SPD
+// system gives a NaN pivot and a NaN step, which the accept test rejects.
+__device__ __forceinline__ void chol6_solve(const float* Hu, const float* b, float lam,
+                                            float* dx) {
+  float A[6][6], L[6][6], inv[6], y[6];
   int k = 0;
+#pragma unroll
   for (int i = 0; i < 6; ++i)
+#pragma unroll
     for (int j = i; j < 6; ++j) A[i][j] = A[j][i] = Hu[k++];
+#pragma unroll
   for (int i = 0; i < 6; ++i) A[i][i] = A[i][i] * (1.f + lam) + 1e-10f;
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
     float s = A[i][i];
+#pragma unroll
     for (int k2 = 0; k2 < i; ++k2) s -= L[i][k2] * L[i][k2];
-    L[i][i] = sqrtf(s);
-    const float inv_d = 1.f / L[i][i];
+    inv[i] = rsqrtf(s);
+#pragma unroll
     for (int j = i + 1; j < 6; ++j) {
       float t = A[j][i];
+#pragma unroll
       for (int k2 = 0; k2 < i; ++k2) t -= L[j][k2] * L[i][k2];
-      L[j][i] = t * inv_d;
+      L[j][i] = t * inv[i];
     }
   }
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
     float s = b[i];
+#pragma unroll
     for (int k2 = 0; k2 < i; ++k2) s -= L[i][k2] * y[k2];
-    y[i] = s / L[i][i];
+    y[i] = s * inv[i];
   }
+#pragma unroll
   for (int i = 5; i >= 0; --i) {
     float s = y[i];
+#pragma unroll
     for (int k2 = i + 1; k2 < 6; ++k2) s -= L[k2][i] * dx[k2];
-    dx[i] = s / L[i][i];
+    dx[i] = s * inv[i];
   }
 }
 
 // Tn = exp(dx) * T on 12 floats (R row-major, t); dx = (rho, phi).
-__device__ void retract(const float* T, const float* dx, float* Tn) {
+__device__ __forceinline__ void retract(const float* T, const float* dx, float* Tn) {
   const float w0 = dx[3], w1 = dx[4], w2 = dx[5];
   const float th2 = w0 * w0 + w1 * w1 + w2 * w2;
   const float th = sqrtf(fmaxf(th2, 0.f));
@@ -82,99 +115,200 @@ __device__ void retract(const float* T, const float* dx, float* Tn) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-pose_lm_kernel(const float* __restrict__ par, const float* __restrict__ xw,
+// Warp reduce-scatter: 32 values per lane in, lane k out with the warp's
+// sum of value k. Each step halves the values a lane holds: it keeps the half
+// its lane bit selects and adds the partner's copy of that half, so 31
+// shuffles replace 28 butterflies of 5, in a fixed order.
+template <int O>
+__device__ __forceinline__ void scatter_step(float* v, bool hi) {
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const float keep = hi ? v[i + O] : v[i];
+    const float send = hi ? v[i] : v[i + O];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+__device__ __forceinline__ float warp_scatter_sum(float* v, int lane) {
+  scatter_step<16>(v, lane & 16);
+  scatter_step<8>(v, lane & 8);
+  scatter_step<4>(v, lane & 4);
+  scatter_step<2>(v, lane & 2);
+  scatter_step<1>(v, lane & 1);
+  return v[0];
+}
+
+struct LmShared {
+  float red[kCtaWarps * kSums];        // the warps' sums of this CTA
+  float slot[2][kCtas * kSums];        // every CTA's partial, by sweep parity
+  __align__(16) float vec[kPad];       // the cluster's sums of this sweep
+  int count[kCtaWarps];
+  int cluster_count[kCtas];            // rank 0 only: each CTA's inliers
+};
+
+// One sweep over the cluster's edges at pose P (registers, the same in every
+// thread of the cluster): out = [H upper triangle, b, err], equal bit for
+// bit in every thread. A thread's first edge is in registers; edges beyond
+// the cluster's width are read from global memory.
+__device__ __forceinline__ void cluster_sweep(
+    cg::cluster_group& cluster, LmShared& sh, int& parity, const float* P,
+    const pose::Camera& c, bool mine, const pose::Edge& eg, bool inl_g, int g,
+    const float* __restrict__ xw, const float* __restrict__ obs,
+    const float* __restrict__ inv_s2, const uint8_t* __restrict__ stereo,
+    const uint8_t* inliers, int n_edges, bool robust, float out[kSums]) {
+  const int tid = threadIdx.x, lane = tid & 31, rank = static_cast<int>(cluster.block_rank());
+  float acc[kPad];
+#pragma unroll
+  for (int k = 0; k < kPad; ++k) acc[k] = 0.f;
+  if (mine) pose::edge_terms(P, c, eg, inl_g ? 1.f : 0.f, robust, acc);
+  for (int e = g + kEdgesInRegisters; e < n_edges; e += kEdgesInRegisters)
+    pose::edge_terms(P, c, pose::load_edge(xw, obs, inv_s2, stereo, e),
+                     static_cast<float>(inliers[e]), robust, acc);
+  const float wsum = warp_scatter_sum(acc, lane);
+  if (lane < kSums) sh.red[(tid >> 5) * kSums + lane] = wsum;
+  __syncthreads();
+  // the CTA's partial of value k, written into slot [rank] of CTA dst
+  if (tid < kCtas * kSums) {
+    const int dst = tid / kSums, k = tid - dst * kSums;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kCtaWarps; ++w) s += sh.red[w * kSums + k];
+    *cluster.map_shared_rank(&sh.slot[parity][rank * kSums + k], dst) = s;
+  }
+  cluster.sync();
+  if (tid < kSums) {
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < kCtas; ++r) s += sh.slot[parity][r * kSums + tid];
+    sh.vec[tid] = s;
+  }
+  parity ^= 1;
+  __syncthreads();
+  const float4* v4 = reinterpret_cast<const float4*>(sh.vec);
+#pragma unroll
+  for (int q = 0; q < kSums / 4; ++q) {
+    const float4 t = v4[q];
+    out[4 * q] = t.x, out[4 * q + 1] = t.y, out[4 * q + 2] = t.z, out[4 * q + 3] = t.w;
+  }
+}
+
+// An edge reclassified at pose T (penalty-form chi2, z clamped to 1e-9).
+__device__ __forceinline__ bool classify(const float* T, const pose::Camera& c,
+                                         const pose::Edge& g, bool valid, float& chi2) {
+  const float pcx = T[0] * g.x + T[1] * g.y + T[2] * g.z + T[9];
+  const float pcy = T[3] * g.x + T[4] * g.y + T[5] * g.z + T[10];
+  const float pcz = T[6] * g.x + T[7] * g.y + T[8] * g.z + T[11];
+  const float invz = 1.f / fmaxf(pcz, 1e-9f);
+  const float u = c.fx * pcx * invz + c.cx;
+  const float v = c.fy * pcy * invz + c.cy;
+  const float ur = u - c.bf * invz;
+  const float eu = g.ou - u, ev = g.ov - v, eur = g.our - ur;
+  chi2 = g.inv_s2 * (eu * eu + ev * ev + g.st * eur * eur);
+  const float delta2 = g.st > 0.f ? c.d2_stereo : c.d2_mono;
+  return valid && chi2 <= delta2 && pcz > 0.f;
+}
+
+__global__ void __cluster_dims__(kCtas, 1, 1) __launch_bounds__(kCtaThreads, 1)
+pose_lm_kernel(pose::Params par, const float* __restrict__ xw,
                const float* __restrict__ obs, const float* __restrict__ inv_s2,
-               const float* __restrict__ stereo, const float* __restrict__ valid,
+               const uint8_t* __restrict__ stereo, const uint8_t* __restrict__ valid,
                int n_edges, int n_rounds, int n_iters, float* __restrict__ pose_out,
                uint8_t* __restrict__ inliers, int* __restrict__ n_inl,
                float* __restrict__ chi2_out) {
-  __shared__ float T[12], Tn[12], vec[kSums];
-  __shared__ float red[kWarps * kSums];
-  __shared__ int count[kWarps];
-  const pose::Camera c = pose::load_camera(par);
+  __shared__ LmShared sh;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
-  if (tid < 12) T[tid] = par[tid];
-  // each thread owns edges tid, tid + kThreads, ...: it alone reads and
-  // writes their inlier flags, so they need no barrier between phases
-  for (int e = tid; e < n_edges; e += kThreads) {
-    inliers[e] = valid[e] > 0.f;
+  const int g = rank * kCtaThreads + tid;            // this thread's first edge
+  const pose::Camera c = pose::load_camera(par);
+  float T[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) T[k] = pose::pose_entry(par.Tcw, k);
+  // each thread owns edges g, g + 2048, ...: it alone reads and writes their
+  // inlier flags, so they need no barrier between phases
+  const bool mine = g < n_edges;
+  const pose::Edge eg = mine ? pose::load_edge(xw, obs, inv_s2, stereo, g) : pose::Edge{};
+  const bool valid_g = mine && valid[g];
+  bool inl_g = valid_g;
+  float chi2_g = 0.f;
+  for (int e = g + kEdgesInRegisters; e < n_edges; e += kEdgesInRegisters) {
+    inliers[e] = valid[e] != 0;
     chi2_out[e] = 0.f;
   }
-  __syncthreads();
+  int parity = 0;
+  cluster.sync();             // every CTA runs before any writes into its shared memory
 
-  float H[21], b[6], err = 0.f, lam = 0.f;     // live in thread 0 only
+  float cur[kSums], vec[kSums], Tn[12];
   for (int r = 0; r < n_rounds; ++r) {
     const bool robust = r < 2;
-    pose::sweep(T, c, xw, obs, inv_s2, stereo, inliers, n_edges, robust, red, vec);
-    if (tid == 0) {
-      for (int k = 0; k < 21; ++k) H[k] = vec[k];
-      for (int k = 0; k < 6; ++k) b[k] = vec[21 + k];
-      err = vec[27];
-      lam = 1e-4f;
-    }
+    cluster_sweep(cluster, sh, parity, T, c, mine, eg, inl_g, g, xw, obs, inv_s2, stereo,
+                  inliers, n_edges, robust, cur);
+    float lam = 1e-4f;
     for (int it = 0; it < n_iters; ++it) {
-      if (tid == 0) {
-        float dx[6];
-        chol6_solve(H, b, lam, dx);
-        retract(T, dx, Tn);
+      // every thread solves: the same code on the same sums gives the same
+      // pose in every thread of the cluster, with no broadcast
+      float dx[6];
+      chol6_solve(cur, cur + 21, lam, dx);
+      retract(T, dx, Tn);
+      cluster_sweep(cluster, sh, parity, Tn, c, mine, eg, inl_g, g, xw, obs, inv_s2, stereo,
+                    inliers, n_edges, robust, vec);
+      if (vec[27] < cur[27]) {                // false for NaN: rejected
+#pragma unroll
+        for (int k = 0; k < 12; ++k) T[k] = Tn[k];
+#pragma unroll
+        for (int k = 0; k < kSums; ++k) cur[k] = vec[k];
+        lam = fmaxf(lam * 0.5f, 1e-9f);
+      } else {
+        lam = fminf(lam * 4.f, 1e6f);
       }
-      __syncthreads();
-      pose::sweep(Tn, c, xw, obs, inv_s2, stereo, inliers, n_edges, robust, red, vec);
-      if (tid == 0) {
-        if (vec[27] < err) {                  // false for NaN: rejected
-          for (int k = 0; k < 12; ++k) T[k] = Tn[k];
-          for (int k = 0; k < 21; ++k) H[k] = vec[k];
-          for (int k = 0; k < 6; ++k) b[k] = vec[21 + k];
-          err = vec[27];
-          lam = fmaxf(lam * 0.5f, 1e-9f);
-        } else {
-          lam = fminf(lam * 4.f, 1e6f);
-        }
-      }
-      __syncthreads();
     }
-    // reclassify every valid edge at the round's pose (penalty-form chi2)
-    for (int e = tid; e < n_edges; e += kThreads) {
-      const float x = xw[3 * e], y = xw[3 * e + 1], z = xw[3 * e + 2];
-      const float pcx = T[0] * x + T[1] * y + T[2] * z + T[9];
-      const float pcy = T[3] * x + T[4] * y + T[5] * z + T[10];
-      const float pcz = T[6] * x + T[7] * y + T[8] * z + T[11];
-      const float invz = 1.f / fmaxf(pcz, 1e-9f);
-      const float u = c.fx * pcx * invz + c.cx;
-      const float v = c.fy * pcy * invz + c.cy;
-      const float ur = u - c.bf * invz;
-      const float eu = obs[3 * e] - u, ev = obs[3 * e + 1] - v, eur = obs[3 * e + 2] - ur;
-      const float st = stereo[e];
-      const float chi2 = inv_s2[e] * (eu * eu + ev * ev + st * eur * eur);
-      const float delta2 = st > 0.f ? c.d2_stereo : c.d2_mono;
-      inliers[e] = valid[e] > 0.f && chi2 <= delta2 && pcz > 0.f;
+    // reclassify every valid edge at the round's pose
+    if (mine) inl_g = classify(T, c, eg, valid_g, chi2_g);
+    for (int e = g + kEdgesInRegisters; e < n_edges; e += kEdgesInRegisters) {
+      float chi2;
+      inliers[e] = classify(T, c, pose::load_edge(xw, obs, inv_s2, stereo, e),
+                            valid[e] != 0, chi2);
       chi2_out[e] = chi2;
     }
-    __syncthreads();
   }
 
-  int mine = 0;
-  for (int e = tid; e < n_edges; e += kThreads) mine += inliers[e];
-  for (int o = 16; o > 0; o >>= 1) mine += __shfl_xor_sync(0xffffffffu, mine, o);
-  if ((tid & 31) == 0) count[tid >> 5] = mine;
+  int own = inl_g;
+  if (mine) {
+    inliers[g] = inl_g;
+    chi2_out[g] = chi2_g;
+  }
+  for (int e = g + kEdgesInRegisters; e < n_edges; e += kEdgesInRegisters) own += inliers[e];
+  own = __reduce_add_sync(0xffffffffu, own);
+  if ((tid & 31) == 0) sh.count[tid >> 5] = own;
   __syncthreads();
   if (tid == 0) {
     int total = 0;
-    for (int w = 0; w < kWarps; ++w) total += count[w];
-    *n_inl = total;
+    for (int w = 0; w < kCtaWarps; ++w) total += sh.count[w];
+    *cluster.map_shared_rank(&sh.cluster_count[rank], 0) = total;
   }
-  if (tid < 12) pose_out[tid] = T[tid];
+  cluster.sync();             // also: no CTA exits while another writes into it
+  if (rank == 0 && tid == 0) {
+    int total = 0;
+    for (int r2 = 0; r2 < kCtas; ++r2) total += sh.cluster_count[r2];
+    *n_inl = total;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      pose_out[4 * i] = T[3 * i], pose_out[4 * i + 1] = T[3 * i + 1];
+      pose_out[4 * i + 2] = T[3 * i + 2], pose_out[4 * i + 3] = T[9 + i];
+    }
+    pose_out[12] = pose_out[13] = pose_out[14] = 0.f;
+    pose_out[15] = 1.f;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
-pose_normal_eqs_kernel(const float* __restrict__ par, const float* __restrict__ xw,
+pose_normal_eqs_kernel(pose::Params par, const float* __restrict__ xw,
                        const float* __restrict__ obs, const float* __restrict__ inv_s2,
-                       const float* __restrict__ stereo, const float* __restrict__ mask,
+                       const uint8_t* __restrict__ stereo, const float* __restrict__ mask,
                        int n_edges, int robust, float* __restrict__ out) {
   __shared__ float T[12], vec[kSums];
   __shared__ float red[kWarps * kSums];
-  if (threadIdx.x < 12) T[threadIdx.x] = par[threadIdx.x];
+  if (threadIdx.x < 12) T[threadIdx.x] = pose::pose_entry(par.Tcw, threadIdx.x);
   __syncthreads();
   pose::sweep(T, pose::load_camera(par), xw, obs, inv_s2, stereo, mask, n_edges,
               robust != 0, red, vec);
@@ -183,27 +317,38 @@ pose_normal_eqs_kernel(const float* __restrict__ par, const float* __restrict__ 
 
 }  // namespace
 
-extern "C" int orb_pose_lm(const void* par, const void* xw, const void* obs,
-                           const void* inv_s2, const void* stereo, const void* valid,
-                           int n_edges, int n_rounds, int n_iters, void* pose_out,
-                           void* inliers, void* n_inl, void* chi2, void* stream) {
-  pose_lm_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(par), static_cast<const float*>(xw),
-      static_cast<const float*>(obs), static_cast<const float*>(inv_s2),
-      static_cast<const float*>(stereo), static_cast<const float*>(valid), n_edges,
-      n_rounds, n_iters, static_cast<float*>(pose_out), static_cast<uint8_t*>(inliers),
-      static_cast<int*>(n_inl), static_cast<float*>(chi2));
+extern "C" int orb_pose_lm(const void* Tcw, const void* fx, const void* fy, const void* cx,
+                           const void* cy, const void* bf, float d2_mono, float d2_stereo,
+                           const void* xw, const void* obs, const void* inv_s2,
+                           const void* stereo, const void* valid, int n_edges, int n_rounds,
+                           int n_iters, void* pose_out, void* inliers, void* n_inl, void* chi2,
+                           void* stream) {
+  const pose::Params par{static_cast<const float*>(Tcw), static_cast<const float*>(fx),
+                         static_cast<const float*>(fy), static_cast<const float*>(cx),
+                         static_cast<const float*>(cy), static_cast<const float*>(bf),
+                         d2_mono, d2_stereo};
+  pose_lm_kernel<<<kCtas, kCtaThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      par, static_cast<const float*>(xw), static_cast<const float*>(obs),
+      static_cast<const float*>(inv_s2), static_cast<const uint8_t*>(stereo),
+      static_cast<const uint8_t*>(valid), n_edges, n_rounds, n_iters,
+      static_cast<float*>(pose_out), static_cast<uint8_t*>(inliers), static_cast<int*>(n_inl),
+      static_cast<float*>(chi2));
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int orb_pose_normal_eqs(const void* par, const void* xw, const void* obs,
-                                   const void* inv_s2, const void* stereo,
+extern "C" int orb_pose_normal_eqs(const void* Tcw, const void* fx, const void* fy,
+                                   const void* cx, const void* cy, const void* bf,
+                                   float d2_mono, float d2_stereo, const void* xw,
+                                   const void* obs, const void* inv_s2, const void* stereo,
                                    const void* mask, int n_edges, int robust, void* out,
                                    void* stream) {
+  const pose::Params par{static_cast<const float*>(Tcw), static_cast<const float*>(fx),
+                         static_cast<const float*>(fy), static_cast<const float*>(cx),
+                         static_cast<const float*>(cy), static_cast<const float*>(bf),
+                         d2_mono, d2_stereo};
   pose_normal_eqs_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(par), static_cast<const float*>(xw),
-      static_cast<const float*>(obs), static_cast<const float*>(inv_s2),
-      static_cast<const float*>(stereo), static_cast<const float*>(mask), n_edges, robust,
-      static_cast<float*>(out));
+      par, static_cast<const float*>(xw), static_cast<const float*>(obs),
+      static_cast<const float*>(inv_s2), static_cast<const uint8_t*>(stereo),
+      static_cast<const float*>(mask), n_edges, robust, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 // The motion-only BA sweep shared by K6 (pose_lm.cu, `orb_pose_lm`) and K7
 // (pose_lm.cu, `orb_pose_normal_eqs`): one linearization of every edge at a
-// pose, reduced over the block to the 6x6 normal equations.
+// pose (`edge_terms`, shared by both), reduced to the 6x6 normal equations
+// (K7 over one block here, `sweep`; K6 over a cluster, in pose_lm.cu).
 //
 // It is the per-edge body of orb_slam2_tpu/ops/pallas_kernels.py
 // `_pose_sweep` / `_pose_hbe_kernel` (= solvers/pose_opt.py
@@ -27,26 +28,49 @@
 
 namespace pose {
 
-constexpr int kThreads = 512;            // one CTA of 16 warps, <= 128 registers each
+constexpr int kThreads = 512;            // K7: one CTA of 16 warps, <= 128 registers each
 constexpr int kWarps = kThreads / 32;
 constexpr int kSums = 28;                // H upper triangle 21, b 6, err 1
 
-// par: R row-major (9), t (3), fx fy cx cy bf, chi2 thresholds mono, stereo
 struct Camera {
   float fx, fy, cx, cy, bf, d2_mono, d2_stereo;
 };
 
-__device__ __forceinline__ Camera load_camera(const float* __restrict__ par) {
-  return Camera{par[12], par[13], par[14], par[15], par[16], par[17], par[18]};
+// The pose and camera as the wrappers hand them over, with no packing on
+// the card: Tcw (4x4 row-major) and fx fy cx cy bf (0-d tensors) in device
+// memory, the chi2 thresholds mono and stereo by value.
+struct Params {
+  const float *Tcw, *fx, *fy, *cx, *cy, *bf;
+  float d2_mono, d2_stereo;
+};
+
+__device__ __forceinline__ Camera load_camera(const Params& p) {
+  return Camera{*p.fx, *p.fy, *p.cx, *p.cy, *p.bf, p.d2_mono, p.d2_stereo};
 }
 
-// Accumulate edge e's terms into acc at pose T (12 floats: R row-major, t).
-__device__ __forceinline__ void edge_terms(const float* T, const Camera& c,
-                                           const float* __restrict__ xw,
-                                           const float* __restrict__ obs, float inv_s2,
-                                           float st, float mask, bool robust, int e,
-                                           float acc[kSums]) {
-  const float x = xw[3 * e], y = xw[3 * e + 1], z = xw[3 * e + 2];
+// Entry k of the 12-float pose (R row-major, then t) from a 4x4 Tcw.
+__device__ __forceinline__ float pose_entry(const float* __restrict__ Tcw, int k) {
+  return k < 9 ? Tcw[4 * (k / 3) + k % 3] : Tcw[4 * (k - 9) + 3];
+}
+
+// One edge's inputs: the world point, the observation (u, v, uR), its
+// inverse sigma^2 and its stereo flag (1 or 0; a bool byte in memory).
+struct Edge {
+  float x, y, z, ou, ov, our, inv_s2, st;
+};
+
+__device__ __forceinline__ Edge load_edge(const float* __restrict__ xw,
+                                          const float* __restrict__ obs,
+                                          const float* __restrict__ inv_s2,
+                                          const uint8_t* __restrict__ stereo, int e) {
+  return Edge{xw[3 * e], xw[3 * e + 1], xw[3 * e + 2], obs[3 * e], obs[3 * e + 1],
+              obs[3 * e + 2], inv_s2[e], stereo[e] ? 1.f : 0.f};
+}
+
+// Accumulate one edge's terms into acc at pose T (12 floats: R row-major, t).
+__device__ __forceinline__ void edge_terms(const float* T, const Camera& c, const Edge& g,
+                                           float mask, bool robust, float acc[kSums]) {
+  const float x = g.x, y = g.y, z = g.z, inv_s2 = g.inv_s2, st = g.st;
   const float pcx = T[0] * x + T[1] * y + T[2] * z + T[9];
   const float pcy = T[3] * x + T[4] * y + T[5] * z + T[10];
   const float pcz = T[6] * x + T[7] * y + T[8] * z + T[11];
@@ -56,7 +80,7 @@ __device__ __forceinline__ void edge_terms(const float* T, const Camera& c,
   const float u = c.fx * pcx * invz + c.cx;
   const float v = c.fy * pcy * invz + c.cy;
   const float ur = u - c.bf * invz;
-  const float eu = obs[3 * e] - u, ev = obs[3 * e + 1] - v, eur = obs[3 * e + 2] - ur;
+  const float eu = g.ou - u, ev = g.ov - v, eur = g.our - ur;
   const float chi2 = inv_s2 * (eu * eu + ev * ev + st * eur * eur);
   const float delta2 = st > 0.f ? c.d2_stereo : c.d2_mono;
   float w_rob = 1.f;
@@ -116,15 +140,15 @@ __device__ __forceinline__ void sweep(const float* T, const Camera& c,
                                       const float* __restrict__ xw,
                                       const float* __restrict__ obs,
                                       const float* __restrict__ inv_s2,
-                                      const float* __restrict__ stereo,
+                                      const uint8_t* __restrict__ stereo,
                                       const MaskT* mask, int n_edges, bool robust,
                                       float* red, float* out) {
   float acc[kSums];
 #pragma unroll
   for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
   for (int e = threadIdx.x; e < n_edges; e += kThreads)
-    edge_terms(T, c, xw, obs, inv_s2[e], stereo[e], static_cast<float>(mask[e]), robust,
-               e, acc);
+    edge_terms(T, c, load_edge(xw, obs, inv_s2, stereo, e), static_cast<float>(mask[e]),
+               robust, acc);
   block_sum(acc, red, out);
 }
 

@@ -49,11 +49,14 @@ SIGNATURES = {
     # kp_ur, kp_valid, kp_desc, n, best, idx, second, stream
     "orb_proj_match": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
                        _P, _P, _P, _P),
-    # par, xw, obs, inv_s2, stereo, valid, e, n_rounds, n_iters, pose,
-    # inliers, n_inl, chi2, stream
-    "orb_pose_lm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
-    # par, xw, obs, inv_s2, stereo, mask, e, robust, out, stream
-    "orb_pose_normal_eqs": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
+    # Tcw, fx, fy, cx, cy, bf, d2_mono, d2_stereo, xw, obs, inv_s2, stereo,
+    # valid, e, n_rounds, n_iters, pose (4x4), inliers, n_inl, chi2, stream
+    "orb_pose_lm": (_P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                    _P, _P, _P),
+    # Tcw, fx, fy, cx, cy, bf, d2_mono, d2_stereo, xw, obs, inv_s2, stereo,
+    # mask, e, robust, out, stream
+    "orb_pose_normal_eqs": (_P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _I, _I, _P,
+                            _P),
     # desc1, un1, la, lb, lc, desc2, xy2, un2, sig, far, n_nb, n, best, idx,
     # stream
     "orb_epi_match": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),

@@ -21,6 +21,7 @@ import torch
 from .launch import check, launch, on_cpu, ptr
 
 BIG = 512    # > the largest Hamming distance (256): a masked entry
+PROJ_MAX_TARGETS = 8192   # K5's keypoints: 17 B staged + 2 B sorted each, in shared memory
 
 
 def popcount32(x):
@@ -191,16 +192,18 @@ def epi_best_two(desc1, un1, la, lb, lc, desc2, xy2, un2, sig, far):
 
 def projection_best_two(uv, radius, pred_level, p_ur, p_valid, p_desc,
                         kp_xy, kp_level, kp_ur, kp_valid, kp_desc):
-    """Kernel wrapper of `projection_best_two_plain`."""
+    """Kernel wrapper of `projection_best_two_plain`: one launch of
+    persistent CTAs, each staging the keypoints in shared memory and
+    bucketing them by (octave, cell); at most PROJ_MAX_TARGETS keypoints."""
     if on_cpu(uv):
         return projection_best_two_plain(uv, radius, pred_level, p_ur, p_valid,
                                          p_desc, kp_xy, kp_level, kp_ur, kp_valid,
                                          kp_desc)
     p, n = uv.shape[0], kp_xy.shape[0]
     dev = uv.device
-    if n < 1 or (BIG + 1) * n >= 2 ** 31:
-        raise ValueError(f"projection_best_two: {n} targets; the int32 key "
-                         f"dist * N + col needs 1 <= N < {2 ** 31 // (BIG + 1)}")
+    if not 1 <= n <= PROJ_MAX_TARGETS:
+        raise ValueError(f"projection_best_two: {n} targets; the kernel stages and "
+                         f"sorts them in shared memory, 1 <= N <= {PROJ_MAX_TARGETS}")
     for t, dtype, shape, name, align in (
             (uv, torch.float32, (p, 2), "uv", 8),
             (radius, torch.float32, (p,), "radius", 4),

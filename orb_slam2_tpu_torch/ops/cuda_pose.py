@@ -23,7 +23,6 @@ import functools
 import torch
 
 from ..solvers import reproj
-from ..utils.config import device_table
 from .launch import check, launch, on_cpu, ptr
 
 
@@ -38,12 +37,16 @@ def triangle(device):
     return i.to(device), j.to(device), full.to(device)
 
 
-def _params(cam, Tcw):
-    """The kernels' (19,) parameter vector, built on the device: R row-major
-    (9), t (3), fx fy cx cy bf, the chi2 thresholds mono and stereo."""
-    return torch.cat([Tcw[:3, :3].reshape(-1), Tcw[:3, 3],
-                      torch.stack([cam.fx, cam.fy, cam.cx, cam.cy, cam.bf]),
-                      device_table((reproj.CHI2_MONO, reproj.CHI2_STEREO), Tcw.device)])
+def _params(cam, Tcw, name):
+    """The kernels' pose and camera arguments, as the caller holds them (no
+    packing on the card): Tcw (4,4) and fx fy cx cy bf (0-d float32
+    tensors), then the chi2 thresholds mono and stereo by value."""
+    dev = Tcw.device
+    check(Tcw, torch.float32, (4, 4), dev, f"{name} Tcw")
+    for field in ("fx", "fy", "cx", "cy", "bf"):
+        check(getattr(cam, field), torch.float32, (), dev, f"{name} camera {field}")
+    return (ptr(Tcw), ptr(cam.fx), ptr(cam.fy), ptr(cam.cx), ptr(cam.cy), ptr(cam.bf),
+            reproj.CHI2_MONO, reproj.CHI2_STEREO)
 
 
 def _check_edges(Xw, obs, inv_sigma2, name):
@@ -79,7 +82,8 @@ def pose_lm_plain(cam, Tcw, Xw, obs, inv_sigma2, stereo, valid, n_rounds: int,
 
 def pose_lm(cam, Tcw, Xw, obs, inv_sigma2, stereo, valid, n_rounds: int,
             n_iters: int):
-    """Kernel wrapper of `pose_lm_plain`: one launch, one CTA."""
+    """Kernel wrapper of `pose_lm_plain`: one launch, one cluster of 8 CTAs
+    (sm_90), one edge per thread up to 2048 edges, the rest looped over."""
     if on_cpu(Xw):
         return pose_lm_plain(cam, Tcw, Xw, obs, inv_sigma2, stereo, valid,
                              n_rounds, n_iters)
@@ -87,21 +91,13 @@ def pose_lm(cam, Tcw, Xw, obs, inv_sigma2, stereo, valid, n_rounds: int,
     e = _check_edges(Xw, obs, inv_sigma2, "pose_lm")
     check(stereo, torch.bool, (e,), dev, "pose_lm stereo")
     check(valid, torch.bool, (e,), dev, "pose_lm valid")
-    check(Tcw, torch.float32, (4, 4), dev, "pose_lm Tcw")
-    # named, so each buffer lives until the launch is queued: a temporary
-    # freed early could be handed to the next allocation before the kernel ran
-    par, stereo_f, valid_f = _params(cam, Tcw), stereo.to(torch.float32), \
-        valid.to(torch.float32)
-    pose = torch.empty((12,), dtype=torch.float32, device=dev)
+    T = torch.empty((4, 4), dtype=torch.float32, device=dev)
     inliers = torch.empty((e,), dtype=torch.bool, device=dev)
     n_inl = torch.empty((), dtype=torch.int32, device=dev)
     chi2 = torch.empty((e,), dtype=torch.float32, device=dev)
-    launch("pose_lm", "orb_pose_lm", dev, ptr(par), ptr(Xw), ptr(obs), ptr(inv_sigma2),
-           ptr(stereo_f), ptr(valid_f), e, int(n_rounds), int(n_iters), ptr(pose),
+    launch("pose_lm", "orb_pose_lm", dev, *_params(cam, Tcw, "pose_lm"), ptr(Xw), ptr(obs),
+           ptr(inv_sigma2), ptr(stereo), ptr(valid), e, int(n_rounds), int(n_iters), ptr(T),
            ptr(inliers), ptr(n_inl), ptr(chi2))
-    T = torch.eye(4, dtype=torch.float32, device=dev)
-    T[:3, :3] = pose[:9].reshape(3, 3)
-    T[:3, 3] = pose[9:]
     return T, inliers, n_inl, chi2
 
 
@@ -128,10 +124,8 @@ def pose_normal_eqs(cam, Tcw, Xw, obs, inv_sigma2, stereo, weight_mask,
     e = _check_edges(Xw, obs, inv_sigma2, "pose_normal_eqs")
     check(stereo, torch.bool, (e,), dev, "pose_normal_eqs stereo")
     check(weight_mask, torch.float32, (e,), dev, "pose_normal_eqs weight_mask")
-    check(Tcw, torch.float32, (4, 4), dev, "pose_normal_eqs Tcw")
-    par, stereo_f = _params(cam, Tcw), stereo.to(torch.float32)   # live past the launch
     out = torch.empty((28,), dtype=torch.float32, device=dev)
-    launch("pose_normal_eqs", "orb_pose_normal_eqs", dev, ptr(par), ptr(Xw), ptr(obs),
-           ptr(inv_sigma2), ptr(stereo_f), ptr(weight_mask), e, int(bool(robust)),
-           ptr(out))
+    launch("pose_normal_eqs", "orb_pose_normal_eqs", dev,
+           *_params(cam, Tcw, "pose_normal_eqs"), ptr(Xw), ptr(obs), ptr(inv_sigma2),
+           ptr(stereo), ptr(weight_mask), e, int(bool(robust)), ptr(out))
     return out[triangle(dev)[2]], out[21:27], out[27]

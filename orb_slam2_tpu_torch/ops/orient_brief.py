@@ -20,6 +20,8 @@ import torch
 from . import cuda_extract
 
 HALF_PATCH = 15  # intensity-centroid patch radius (src/ORBextractor.cc:80)
+BRIEF_PATTERN_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                  "data", "brief_pattern.npy")
 
 _DEG2RAD = np.float32(np.pi / 180)
 _RAD2DEG = np.float32(180 / np.pi)
@@ -67,11 +69,9 @@ def ic_weights() -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def brief_pattern() -> np.ndarray:
     """(256, 4) int32 sampling offsets (x0,y0,x1,y1) — the fixed learned ORB
-    pattern (reference `src/ORBextractor.cc:209-467`), read from the JAX
-    package's data file by path."""
-    path = os.path.join(os.path.dirname(__file__), "..", "..", "orb_slam2_tpu",
-                        "data", "brief_pattern.npy")
-    return np.load(os.path.abspath(path))
+    pattern (reference `src/ORBextractor.cc:209-467`), read from the port's
+    own copy of the reference's data file."""
+    return np.load(BRIEF_PATTERN_PATH)
 
 
 def brief_points() -> np.ndarray:

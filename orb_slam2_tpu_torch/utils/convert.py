@@ -51,13 +51,13 @@ def _from_numpy(cls, rec, device):
     return cls(**{f: _tensor(f, getattr(rec, f), device) for f in cls._fields})
 
 
-def keypoints_from_numpy(kps, device="cpu") -> Keypoints:
+def keypoints_from_numpy(kps, device="cuda") -> Keypoints:
     """Port `Keypoints` from a reference `Keypoints` (or any object with its
     fields as arrays)."""
     return _from_numpy(Keypoints, kps, device)
 
 
-def frame_from_numpy(frame, device="cpu") -> FrameData:
+def frame_from_numpy(frame, device="cuda") -> FrameData:
     """Port `FrameData` from a reference `FrameData` (or any object with its
     fields as arrays)."""
     return _from_numpy(FrameData, frame, device)
@@ -69,7 +69,7 @@ def frame_to_numpy(frame: FrameData) -> dict:
     return {f: _array(f, getattr(frame, f)) for f in FrameData._fields}
 
 
-def mapstate_from_numpy(m, device="cpu") -> MapState:
+def mapstate_from_numpy(m, device="cuda") -> MapState:
     """Port `MapState` from a reference `MapState` (or any object with its
     31 fields as arrays): descriptors become the int32 view of their uint32
     words, every other field keeps its dtype."""
@@ -82,7 +82,7 @@ def mapstate_to_numpy(m: MapState) -> dict:
     return {f: _array(f, getattr(m, f)) for f in MapState._fields}
 
 
-def track_result_from_numpy(res, device="cpu") -> TrackStepResult:
+def track_result_from_numpy(res, device="cuda") -> TrackStepResult:
     """Port `TrackStepResult` from a reference one (map and frame included)."""
     return TrackStepResult(**{
         f: mapstate_from_numpy(res.m, device) if f == "m" else
@@ -97,7 +97,7 @@ def track_result_to_numpy(res: TrackStepResult) -> dict:
             for f in TrackStepResult._fields}
 
 
-def ba_problem_from_numpy(prob, device="cpu") -> BAProblem:
+def ba_problem_from_numpy(prob, device="cuda") -> BAProblem:
     """Port `BAProblem` from a reference `BAProblem` (or any object with its
     8 fields as arrays)."""
     return _from_numpy(BAProblem, prob, device)

@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""K5 and K6 of two checkouts of the port, timed on one card in one call.
+
+    python3 scripts/kernel_ab.py OTHER_CHECKOUT [--out chiprun_out/kernel_ab.json]
+
+Records, with this checkout's `chip_smoke.py`, the arguments the main path
+hands K5 (frame 1's local-map search, fusion's union at the second keyframe
+event) and K6 (frame 1's first pose solve), then times the kernels of
+OTHER_CHECKOUT, this checkout, this checkout and OTHER_CHECKOUT again, each
+in a process of its own that imports the package, and builds the kernels,
+of the checkout under test. Device time is `chip_smoke._queued_ms` of that
+checkout (20 calls queued behind a sleeping kernel, timed by CUDA events).
+K6 runs at the schedules (rounds x iterations) 1x0, 2x0, 1x10 and 4x10: the
+slope from 1x0 to 1x10 is one LM iteration (a sweep with its reduction, then
+the 6x6 solve, the retract and the accept test), 2x0 - 1x0 one sweep (and a
+reclassification), and their difference the solve. K7 is timed too. Prints
+one JSON line per run and a summary; needs a CUDA card.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCHEDULES = ((1, 0), (2, 0), (1, 10), (4, 10))
+
+
+def _portable(x):
+    """Tensors to the CPU and the camera to a dict, for torch.save."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if hasattr(x, "_asdict"):
+        return {"camera": {k: _portable(v) for k, v in x._asdict().items()}}
+    if isinstance(x, tuple):
+        return tuple(_portable(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _portable(v) for k, v in x.items()}
+    return x
+
+
+def _on_card(x, dev):
+    import torch
+    from orb_slam2_tpu_torch.geometry.camera import Camera
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict) and "camera" in x:
+        return Camera(**{k: _on_card(v, dev) for k, v in x["camera"].items()})
+    if isinstance(x, tuple):
+        return tuple(_on_card(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: _on_card(v, dev) for k, v in x.items()}
+    return x
+
+
+def record(path):
+    import torch
+    import chip_smoke as cs
+    dev = torch.device("cuda", 0)
+    cfg = cs.bench_config()
+    _, frames = cs.render_frames()
+    uploads = [(torch.from_numpy(g).to(dev), torch.from_numpy(d).to(dev))
+               for g, d in frames[:cs.N_RECORD]]
+    recorded = {}
+    with cs.twins(), cs.recording(recorded):
+        cs.run_sequence(cfg, uploads)
+    torch.cuda.synchronize()
+    torch.save(_portable({"k5": recorded["proj_match"][0], "k6": recorded["pose_lm"][0][:7],
+                          "fusion": recorded["proj_match@event"][-1]}), path)
+
+
+def time_kernels(path, label):
+    import torch
+    import chip_smoke as cs
+    from orb_slam2_tpu_torch.ops import _build
+    from orb_slam2_tpu_torch.ops import cuda_match as cm
+    from orb_slam2_tpu_torch.ops import cuda_pose as cp
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.library()
+    rec = _on_card(torch.load(path), dev)
+    k5, k6, fusion = rec["k5"], rec["k6"], rec["fusion"]
+    k7 = k6[:6] + (k6[6].to(torch.float32), True)
+    res = {"label": label, "package": os.path.dirname(cs.cp.__file__),
+           "card": torch.cuda.get_device_name(0)}
+    for r, i in SCHEDULES:
+        res[f"pose_lm_{r}x{i}_ms"] = cs._queued_ms(lambda r=r, i=i: cp.pose_lm(*k6, r, i))
+    res["pose_normal_eqs_ms"] = cs._queued_ms(lambda: cp.pose_normal_eqs(*k7))
+    res["proj_match_frame1_ms"] = cs._queued_ms(lambda: cm.projection_best_two(*k5))
+    res["proj_match_fusion_union_ms"] = cs._queued_ms(lambda: cm.projection_best_two(*fusion))
+    res["shapes"] = {"pose_lm_edges": k6[2].shape[0], "proj_match_frame1": [
+        k5[0].shape[0], k5[6].shape[0]], "proj_match_fusion_union": [fusion[0].shape[0],
+                                                                     fusion[6].shape[0]]}
+    print(json.dumps(res), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("other", help="another checkout of the repo (e.g. the parent commit)")
+    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "kernel_ab.json"))
+    ap.add_argument("--mode", choices=("run", "record", "time"), default="run")
+    ap.add_argument("--inputs", default=os.path.join(ROOT, "chiprun_out", "kernel_ab_inputs.pt"))
+    ap.add_argument("--label", default="")
+    a = ap.parse_args()
+    if a.mode == "record":
+        return record(a.inputs)
+    if a.mode == "time":
+        return time_kernels(a.inputs, a.label)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a CUDA card")
+    os.makedirs(os.path.dirname(a.out), exist_ok=True)
+    other = os.path.abspath(a.other)
+    if not os.path.exists(os.path.join(other, "orb_slam2_tpu_torch", "csrc")):
+        raise SystemExit(f"kernel_ab: no checkout of the port at {other}")
+
+    def child(mode, tree, label=""):
+        env = dict(os.environ, PYTHONPATH=tree)
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), other, "--mode", mode,
+                              "--inputs", a.inputs, "--label", label], env=env, cwd=tree,
+                             capture_output=True, text=True, check=False, timeout=900)
+        if out.returncode:
+            raise SystemExit(f"kernel_ab {mode} in {tree} failed:\n{out.stdout}\n{out.stderr}")
+        return out.stdout
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"[kernel_ab] {card}", flush=True)
+    child("record", ROOT)
+    runs = []
+    for label, tree in (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)):
+        line = child("time", tree, label).strip().splitlines()[-1]
+        print(line, flush=True)
+        runs.append(json.loads(line))
+    keys = [k for k in runs[0] if k.endswith("_ms")]
+    # each kernel's lesser time of its two runs per checkout
+    summary = {"card": card, "runs": runs, "best_of_two": {
+        lab: {k: sorted(r[k] for r in runs if r["label"] == lab)[0] for k in keys}
+        for lab in ("other", "this")}}
+    for lab, t in summary["best_of_two"].items():
+        it = (t["pose_lm_1x10_ms"] - t["pose_lm_1x0_ms"]) / 10
+        t["pose_lm_per_iteration_ms"] = it
+        t["pose_lm_per_sweep_ms"] = t["pose_lm_2x0_ms"] - t["pose_lm_1x0_ms"]
+        t["pose_lm_solve_ms"] = it - t["pose_lm_per_sweep_ms"]
+    with open(a.out, "w") as f:
+        json.dump(summary, f, indent=1)
+    print(json.dumps(summary["best_of_two"]), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -242,12 +242,12 @@ def test_convert_round_trip_bit_exact():
         depth=rng.random(n).astype(np.float32))
     ref.desc[0, 0] = 0xFFFFFFFF
     ref.desc[1, 3] = 0x80000000
-    f = convert.frame_from_numpy(ref)
+    f = convert.frame_from_numpy(ref, device="cpu")
     assert f.desc.dtype == torch.int32
     back = convert.frame_to_numpy(f)
     for name in _RefFrame._fields:
         a, b = getattr(ref, name), back[name]
         assert a.dtype == b.dtype, name
         np.testing.assert_array_equal(b, a, err_msg=name)
-    kp = convert.keypoints_from_numpy(ref)
+    kp = convert.keypoints_from_numpy(ref, device="cpu")
     assert torch.equal(kp.desc, f.desc) and torch.equal(kp.valid, f.valid)

@@ -193,6 +193,58 @@ def test_proj_match_kernel_bit_exact(cuda, p, n):
         assert int((got[0] < 100).sum()) > p // 4 and int((got[2] < cm.BIG).sum()) > 0
 
 
+def _proj_case(case, dev):
+    """K5's adversarial inputs (P = 2048 points x N = 2048 keypoints unless
+    the case says otherwise)."""
+    rng = np.random.default_rng(7)
+    p, n = {"n1": (500, 1), "n33": (500, 33), "p0": (0, 300)}.get(case, (2048, 2048))
+    args = list(_proj_inputs(rng, p, n, dev))
+    uv, radius, kp_xy = args[0], args[1], args[6]
+    if case == "one_cell":                  # every keypoint in one 32 px cell
+        kp_xy.copy_(torch.rand_like(kp_xy) * 31.0 + torch.tensor([96.0, 192.0], device=dev))
+        uv.copy_(kp_xy[torch.randint(0, n, (p,), device=dev)] + torch.randn_like(uv) * 3)
+    elif case == "whole_frame":             # windows wider than the frame
+        radius.fill_(1000.0)
+    elif case == "r0":
+        radius.zero_()
+    elif case == "nan_row":                 # valid rows with a NaN projection or radius
+        args[4][:64] = True
+        uv[:32, 0] = float("nan")
+        radius[32:64] = float("nan")
+    elif case == "outside":                 # keypoints and points outside the image
+        kp_xy.mul_(1.5).sub_(160.0)
+        uv.mul_(1.5).sub_(160.0)
+    elif case == "ties":                    # every distance 0 or 1, duplicate keypoints
+        args[10].copy_(args[10][:1].clone().expand(n, 8))
+        args[5].copy_(args[10][:1].expand(p, 8) ^ (torch.arange(p, device=dev)[:, None] % 2
+                                                   * (torch.arange(8, device=dev) == 0)))
+        kp_xy[n // 2:] = kp_xy[: n - n // 2]
+    return tuple(a.contiguous() for a in args)
+
+
+@pytest.mark.parametrize("case", ["one_cell", "whole_frame", "r0", "nan_row", "outside", "n1",
+                                  "n33", "p0", "ties"])
+def test_proj_match_kernel_bit_exact_on_edge_cases(cuda, case):
+    args = _proj_case(case, cuda)
+    before = launch.LAUNCHES["proj_match"]
+    got = cm.projection_best_two(*args)
+    want = cm.projection_best_two_plain(*args)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["proj_match"] == before + (case != "p0")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if case in ("one_cell", "whole_frame", "ties"):
+        assert int((got[2] < cm.BIG).sum()) > 0 and int((got[0] < cm.BIG).sum()) > 100
+    if case in ("r0", "p0"):
+        assert not bool((got[0] < cm.BIG).any())
+
+
+def test_proj_match_rejects_too_many_keypoints(cuda):
+    args = _proj_inputs(np.random.default_rng(0), 4, cm.PROJ_MAX_TARGETS + 1, cuda)
+    with pytest.raises(ValueError):
+        cm.projection_best_two(*args)
+
+
 def _pose_scene(rng, n, stereo, outliers, dev, bf=40.0):
     Xw = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(4, 15, n)],
                   -1).astype(np.float32)
@@ -232,6 +284,35 @@ def test_pose_lm_kernel_within_tolerance(cuda, stereo, outliers, n):
     assert int(n_inl) == int(inl.sum()) and int(n_inl) > n // 2
     k = int(outliers * n)
     assert not bool(inl[:k].any())
+
+
+@pytest.mark.parametrize("n", [1, 7, 2048, 5000])
+def test_pose_lm_cluster_kernel_at_any_edge_count(cuda, n):
+    """One stereo edge per thread of the 8-CTA cluster, threads with no edge
+    (E = 1, 7), and edges beyond the cluster's 2048 looped over from global
+    memory (E = 5000): Tcw within 1e-4 of the twin, the same inliers, and
+    two launches equal bit for bit. One edge gives H of rank 3, so the pose
+    is not unique: the kernel's sums equal the twin's bit for bit there (one
+    term each), but its Cholesky and the twin's LU part along the null space
+    (1.6e-4 on an H100), so E = 1 is held as the rank-deficient case is:
+    a finite pose, the same inliers and the same residual error."""
+    args, _ = _pose_scene(np.random.default_rng(70 + n), n, True, 0.0 if n < 10 else 0.2,
+                          cuda)
+    args = args[:6] + (torch.ones_like(args[6]),)
+    got = cp.pose_lm(*args, 4, 10)
+    again = cp.pose_lm(*args, 4, 10)
+    Tp, inl_p, n_p, chi2_p = cp.pose_lm_plain(*args, 4, 10)
+    torch.cuda.synchronize()
+    T, inl, n_inl, chi2 = got
+    if n == 1:
+        assert bool(torch.isfinite(T).all())
+        assert abs(float(chi2[inl].sum()) - float(chi2_p[inl_p].sum())) <= 1e-4
+    else:
+        assert float((T - Tp).abs().max()) <= 1e-4
+    assert torch.equal(inl, inl_p) and int(n_inl) == int(n_p) == int(inl.sum())
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert int(n_inl) >= max(1, n // 2)
 
 
 def test_pose_normal_eqs_kernel_within_tolerance(cuda):

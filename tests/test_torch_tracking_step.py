@@ -113,11 +113,11 @@ def _fields_equal(got: dict, want, atol=1e-5):
 
 
 def test_mapstate_and_result_round_trip(seq):
-    m = convert.mapstate_from_numpy(seq["m2"])
+    m = convert.mapstate_from_numpy(seq["m2"], device="cpu")
     assert len(tmap.MapState._fields) == len(jmap.MapState._fields) == 31
     assert m.kf_desc.dtype == torch.int32 and m.pt_desc.dtype == torch.int32
     _fields_equal(convert.mapstate_to_numpy(m), seq["m2"], atol=0)
-    r = convert.track_result_from_numpy(seq["r1"])
+    r = convert.track_result_from_numpy(seq["r1"], device="cpu")
     back = convert.track_result_to_numpy(r)
     _fields_equal(back["m"], seq["r1"].m, atol=0)
     _fields_equal(back["frame"], seq["r1"].frame, atol=0)
@@ -143,7 +143,7 @@ def test_insert_keyframe_matches(seq, all_depth):
     else:
         m_in, i, Tcw, matched = seq["r1"].m, 1, seq["r1"].Tcw, seq["r1"].matched_pt
         want, kf = seq["m2"], seq["kf1"]
-    m, kf_t = tmo.insert_keyframe(tcfg, convert.mapstate_from_numpy(m_in), seq["tf"][i],
+    m, kf_t = tmo.insert_keyframe(tcfg, convert.mapstate_from_numpy(m_in, device="cpu"), seq["tf"][i],
                                   torch.from_numpy(np.array(Tcw)),
                                   torch.from_numpy(np.array(matched)), i, i / 30,
                                   all_depth=all_depth)
@@ -155,7 +155,7 @@ def test_insert_keyframe_matches(seq, all_depth):
 def test_select_local_map_exact(seq):
     r1, m2 = seq["r1"], seq["m2"]
     want = jto.select_local_map(m2, r1.matched_pt, max_kf=8, max_pts=1024)
-    got = tto.select_local_map(convert.mapstate_from_numpy(m2),
+    got = tto.select_local_map(convert.mapstate_from_numpy(m2, device="cpu"),
                                torch.from_numpy(np.array(r1.matched_pt)), max_kf=8,
                                max_pts=1024)
     for g, w in zip(got, want):
@@ -171,8 +171,8 @@ def test_step_matches_reference(seq):
     tt = lambda a: torch.from_numpy(np.array(a))
     tts.HOST_READS["count"] = 0
     got = tts.full_tracking_step(
-        tcfg, convert.mapstate_from_numpy(seq["m2"]), seq["tf"][2],
-        convert.frame_from_numpy(last), tt(lp), tt(lpv), tt(lm), tt(T_last), tt(vel),
+        tcfg, convert.mapstate_from_numpy(seq["m2"], device="cpu"), seq["tf"][2],
+        convert.frame_from_numpy(last, device="cpu"), tt(lp), tt(lpv), tt(lm), tt(T_last), tt(vel),
         bool(has_vel), tt(ref_kf), min_inl)
     assert tts.HOST_READS["count"] == 2             # the two branch decisions
     sc_g, sc_w = got.scalars.numpy(), np.asarray(r2.scalars)
