@@ -10,10 +10,12 @@ Phases (each prints its result; any failure exits non-zero):
                one nvcc per source, all at once; prints ptxas registers and
                spills;
 3. parity    — each kernel against its plain-PyTorch twin on the card:
-               K1-K3 at every pyramid level of a 640x480 frame, K4/K5/K8
-               bit-exact, K6/K7/K9 within tolerance; on the inputs the main
-               path hands them on real frames and keyframe events (K5 also
-               on fusion's), and on synthetic ones with degenerate cases;
+               K1-K3 at every pyramid level of a 640x480 frame (K2 in its
+               one launch over the pyramid), K4/K5/K8 and every field of
+               the K9 assembly bit-exact, K6/K7 within tolerance; on the
+               inputs the main path hands them on real frames and keyframe
+               events (K5 also on fusion's), and on synthetic ones with
+               degenerate cases;
 4. main path — PlateWorld 640x480, 1000 features, 8 levels (the reference
                bench's configuration), the bench loop's first 31 poses:
                frame 0 through `make_frame_rgbd` and the RGB-D
@@ -34,9 +36,11 @@ Phases (each prints its result; any failure exits non-zero):
                step, and per keyframe event, on the kernel path and the twin
                path, device time and idle share, and each kernel against its
                twin at the main path's shapes, beside its bound (the bytes
-               and operations its function needs on this run's inputs);
-               K2 and K3 also over a whole frame's levels, K5 at fusion's
-               union, K6 split by its schedule (1x0, 2x0, 1x10, 4x10).
+               and operations its function needs on this run's inputs) and,
+               where one PyTorch call computes the same function, its time
+               (K1: F.interpolate); K2 over a whole frame's levels (its one
+               launch), K3 also, K5 at fusion's union, K6 split by its
+               schedule (1x0, 2x0, 1x10, 4x10).
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -70,6 +74,7 @@ from orb_slam2_tpu_torch.ops import extractor as ex
 from orb_slam2_tpu_torch.ops import orient_brief, select
 from orb_slam2_tpu_torch.pipeline import mapping_ops, tracking_step
 from orb_slam2_tpu_torch.pipeline.frame import make_frame_rgbd
+from orb_slam2_tpu_torch.solvers import schur_ba
 from orb_slam2_tpu_torch.utils.config import SlamConfig, SENSOR_RGBD
 from orb_slam2_tpu_torch.utils.synthetic import PlateWorld, loop_trajectory
 
@@ -116,7 +121,6 @@ N_FRAMES = 31               # frames of the sequence (10 keyframe events)
 KF_EVERY = 3                # a keyframe forced on every 3rd frame (bench.py:118-124)
 N_RECORD = 7                # frames of the recording run (events at 3 and 6, BA on 6)
 POSE_TOL = 1e-4             # K6 against its twin, per entry of Tcw
-K9_TOL = 1e-5               # K9 against its twin, relative to each row block's magnitude
 FX, W, H = 517.3, 640, 480
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM: 3.35 TB/s
 FP32_OPS_PER_MS = 67e9      # H100 SXM: 67 TFLOP/s float32 outside the tensor cores
@@ -142,19 +146,19 @@ SOURCES = {   # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
 }
 WRAPPERS = {  # kernel: (module, wrapper, twin)
     "pyramid": (ce, "pyramid", ce.pyramid_plain),
-    "dense_stage": (ce, "dense_stage", ce.dense_stage_plain),
+    "dense_stage": (ce, "dense_stage_levels", ce.dense_stage_levels_plain),
     "brief": (ce, "brief", ce.brief_plain),
     "best_two": (cm, "masked_best_two", cm.masked_best_two_plain),
     "proj_match": (cm, "projection_best_two", cm.projection_best_two_plain),
     "pose_lm": (cp, "pose_lm", cp.pose_lm_plain),
     "pose_normal_eqs": (cp, "pose_normal_eqs", cp.pose_normal_eqs_plain),
     "epi_match": (cm, "epi_best_two", cm.epi_best_two_plain),
-    "ba_edge": (cb, "ba_edge_terms", cb.ba_edge_terms_plain),
+    "ba_edge": (cb, "ba_assemble", cb.ba_assemble_plain),
 }
 RECORDED = ("best_two", "proj_match", "pose_lm", "epi_match", "ba_edge")
 HAND_KERNELS = ("resize_level_kernel", "dense_stage_kernel", "brief_kernel", "best_two_kernel",
                 "proj_match_kernel", "pose_lm_kernel", "pose_normal_eqs_kernel",
-                "epi_match_kernel", "ba_edge_kernel")   # their __global__ names in csrc/
+                "epi_match_kernel", "ba_assemble_kernel")   # their __global__ names in csrc/
 PHASE = ["track"]           # "event" while run_sequence is inside keyframe_pass
 
 
@@ -269,6 +273,13 @@ def kernel_inputs(cfg, img, dev):
     return ext, pyr, levels
 
 
+def _dense_args(cfg, levels, ext):
+    """What the extractor hands K2 for a frame: every level, the
+    thresholds, the levels' detection regions and the Gaussian taps."""
+    return ([lv for lv, *_ in levels], cfg.ini_th_fast, cfg.min_th_fast,
+            [_region(*lv.shape) for lv, *_ in levels], ext.gauss)
+
+
 def _max_abs(a, b):
     """Max |a - b| over two tensors, equal values (infinities too) as 0."""
     a, b = a.double(), b.double()
@@ -290,19 +301,31 @@ def front_parity(cfg, frames, dev, errs):
         errs["pyramid"] = max(errs["pyramid"], _max_abs(a, b))
         _require_equal(f"pyramid level {lvl}", a, b)
     log(f"[parity] pyramid: {len(pyr) - 1} levels bit-exact")
+    dense_args = _dense_args(cfg, levels, ext)
+    dense, dense_twin = ce.dense_stage_levels(*dense_args), ce.dense_stage_levels_plain(*dense_args)
+    torch.cuda.synchronize()
     for lvl, (lv, blur, ys, xs, dx, dy) in enumerate(levels):
-        args = (lv, cfg.ini_th_fast, cfg.min_th_fast, *_region(*lv.shape))
-        got, want = ce.dense_stage(*args), ce.dense_stage_plain(*args)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("score_nms", "hi", "blur"), got, want):
+        for name, a, b in zip(("score_nms", "hi", "blur"), dense[lvl], dense_twin[lvl]):
             errs["dense_stage"] = max(errs["dense_stage"], _max_abs(a, b))
             _require_equal(f"dense_stage level {lvl} {name}", a, b)
         got, want = ce.brief(blur, ys, xs, dx, dy), ce.brief_plain(blur, ys, xs, dx, dy)
         torch.cuda.synchronize()
         errs["brief"] = max(errs["brief"], _max_abs(got, want))
         _require_equal(f"brief level {lvl}", got, want)
-        log(f"[parity] level {lvl} {lv.shape[0]}x{lv.shape[1]}: dense_stage "
-            f"bit-exact, brief {ys.shape[0]} keypoints bit-exact")
+        log(f"[parity] level {lvl} {lv.shape[0]}x{lv.shape[1]}: dense_stage (one launch "
+            f"over the {len(levels)} levels) bit-exact, brief {ys.shape[0]} keypoints bit-exact")
+    for i, (gray, _) in enumerate(frames[1:N_FRONT], 1):
+        pyr = ce.pyramid_plain(torch.from_numpy(gray).to(dev).to(torch.float32),
+                               ext.pyramid_taps())
+        args = (pyr, *dense_args[1:])
+        dense, dense_twin = ce.dense_stage_levels(*args), ce.dense_stage_levels_plain(*args)
+        torch.cuda.synchronize()
+        for lvl, (got, want) in enumerate(zip(dense, dense_twin)):
+            for name, a, b in zip(("score_nms", "hi", "blur"), got, want):
+                errs["dense_stage"] = max(errs["dense_stage"], _max_abs(a, b))
+                _require_equal(f"dense_stage frame {i} level {lvl} {name}", a, b)
+    log(f"[parity] dense_stage: frames 1-{N_FRONT - 1} of the front-end checks, every level "
+        f"bit-exact")
 
 
 def _random_desc(rng, n, dev):
@@ -482,51 +505,46 @@ def _synthetic_epi(rng, b, n, dev):
             t(3.84 * 1.44 ** rng.integers(0, 8, (b, n))), t(far, bool))
 
 
-def _synthetic_ba(rng, q, o, dev, robust):
-    """K9's arguments at E = q * o edges: 16 random cameras around points
-    4-15 m in front, 5 % of the points behind their camera, 1 % of the
-    edges padded (mask 0), 30 % stereo."""
-    e = q * o
-    xi = torch.from_numpy(rng.normal(0, 0.1, (16, 6)).astype(np.float32))
-    T = se3.exp(xi)
-    cam_of = rng.integers(0, 16, e)
-    rows = torch.cat([T[:, :3, :3].reshape(16, 9), T[:, :3, 3]], 1)[cam_of].T
+def _synthetic_ba(rng, q, o, c, dev, robust, drop_cam=None):
+    """K9's arguments at E = q * o edges, as `schur_ba._assemble` hands them:
+    16 random cameras in c slots (slots 0-15, or every 32nd from slot 7
+    where c > 64; the rest empty) around points 4-15 m in front, 5 % of the
+    points behind their camera, 2 % of the edges padded (camera -1), 1 %
+    masked, 30 % stereo; camera drop_cam's edges padded with weight 1 (they
+    must join no camera's sums)."""
+    T = se3.exp(torch.from_numpy(rng.normal(0, 0.1, (c, 6)).astype(np.float32)))
     X = np.stack([rng.uniform(-3, 3, q), rng.uniform(-2, 2, q), rng.uniform(4, 15, q)], -1)
     X[: q // 20, 2] = -rng.uniform(0.5, 3, q // 20)
-    Xw = np.repeat(X, o, 0).astype(np.float32).T
-    obs = np.stack([rng.uniform(0, W, e), rng.uniform(0, H, e),
-                    np.where(rng.random(e) < 0.3, rng.uniform(0, W, e), -1.0)], 0)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    slots = np.arange(min(c, 16)) if c <= 64 else 7 + 32 * np.arange(16)
+    obs_cam = slots[rng.integers(0, len(slots), (q, o))].astype(np.int32)
+    obs_cam[rng.random((q, o)) < 0.02] = -1
+    mask = rng.random((q, o)) > 0.01
+    if drop_cam is not None:
+        mask |= obs_cam == drop_cam
+        obs_cam[obs_cam == drop_cam] = -1
+    uvr = np.stack([rng.uniform(0, W, (q, o)), rng.uniform(0, H, (q, o)),
+                    np.where(rng.random((q, o)) < 0.3, rng.uniform(0, W, (q, o)), -1.0)], -1)
+    t = lambda a, dt=np.float32: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+    prob = schur_ba.BAProblem(
+        poses=T.to(dev), cam_valid=torch.ones(c, dtype=torch.bool, device=dev),
+        cam_fixed=torch.zeros(c, dtype=torch.bool, device=dev), points=t(X),
+        pt_valid=torch.ones(q, dtype=torch.bool, device=dev), obs_cam=t(obs_cam, np.int32),
+        obs_uvr=t(uvr), obs_level=t(rng.integers(0, 8, (q, o)), np.int32))
+    edges = schur_ba._edges(prob, t(1.0 / 1.44 ** rng.integers(0, 8, (q, o))))
     cam = Camera.make(FX, FX, W / 2, H / 2, bf=FX * 0.25, device=dev)
-    return (cam, rows.contiguous().to(dev), t(Xw), t(obs), t(1.0 / 1.44 ** rng.integers(0, 8, e)),
-            t(obs[2] >= 0), t(rng.random(e) > 0.01), robust)
+    return cam, prob.poses, prob.points, prob.pt_valid, edges, t(mask), robust
 
 
-def _ba_rows_close(what, got, want, errs):
-    """K9 against its twin: each row block within K9_TOL of the block's
-    largest magnitude, err and chi2 within K9_TOL relative, depth_ok exact,
+def _lin_equal(what, got, want, errs):
+    """K9 against its twin: every `schur_ba.Lin` field equal bit for bit,
     NaN where the twin has NaN."""
-    if not torch.equal(torch.isnan(got), torch.isnan(want)):
-        raise AssertionError(f"ba_edge {what}: NaN entries differ from its twin")
-    g, w = torch.nan_to_num(got), torch.nan_to_num(want)
-    worst = 0.0
-    blocks = ((cb.BA_ROW_HCC, cb.BA_ROW_W), (cb.BA_ROW_W, cb.BA_ROW_HPP),
-              (cb.BA_ROW_HPP, cb.BA_ROW_BC), (cb.BA_ROW_BC, cb.BA_ROW_BP),
-              (cb.BA_ROW_BP, cb.BA_ROW_ERR))
-    for lo, hi in blocks:
-        d = float((g[lo:hi] - w[lo:hi]).abs().max())
-        scale = float(w[lo:hi].abs().max())
-        worst = max(worst, d / max(scale, 1e-30))
-        if d > K9_TOL * scale:
-            raise AssertionError(f"ba_edge {what}: rows {lo}-{hi - 1} differ by {d:.3g} "
-                                 f"(block magnitude {scale:.3g}, tolerance {K9_TOL})")
-    for r in (cb.BA_ROW_ERR, cb.BA_ROW_CHI2):
-        d = (g[r] - w[r]).abs()
-        if bool((d > K9_TOL * w[r].abs()).any()):
-            raise AssertionError(f"ba_edge {what}: row {r} differs by up to {float(d.max()):.3g}")
-    _require_equal(f"ba_edge {what} depth_ok", got[cb.BA_ROW_DEPTH], want[cb.BA_ROW_DEPTH])
-    errs["ba_edge"] = max(errs["ba_edge"], _max_abs(got, want))
-    return worst
+    for name, a, b in zip(schur_ba.Lin._fields, got, want):
+        if a.is_floating_point():
+            if not torch.equal(torch.isnan(a), torch.isnan(b)):
+                raise AssertionError(f"ba_assemble {what} {name}: NaN entries differ from its twin")
+            a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+            errs["ba_edge"] = max(errs["ba_edge"], _max_abs(a, b))
+        _require_equal(f"ba_assemble {what} {name}", a, b)
 
 
 def map_parity(recorded, dev, errs):
@@ -553,23 +571,39 @@ def map_parity(recorded, dev, errs):
     ba = recorded["ba_edge@event"]
     cases = [("keyframe event 2, first pass", ba[0]), ("keyframe event 2, last pass", ba[-1])]
     for robust in (True, False):
-        cases.append((f"synthetic E=49152 robust={robust}", _synthetic_ba(rng, 4096, 12, dev,
-                                                                            robust)))
-    masked = _synthetic_ba(rng, 4096, 12, dev, True)
-    cases.append(("synthetic, every edge masked", masked[:6] + (torch.zeros_like(masked[6]),
+        cases.append((f"synthetic E=49152 robust={robust}",
+                      _synthetic_ba(rng, 4096, 12, 64, dev, robust)))
+    masked = _synthetic_ba(rng, 4096, 12, 64, dev, True)
+    cases.append(("synthetic, every edge masked", masked[:5] + (torch.zeros_like(masked[5]),
                                                                 True)))
-    poisoned = _synthetic_ba(rng, 4096, 12, dev, True)
-    poisoned[2][:, 12 * 100:12 * 101] = float("nan")       # point 100, all 12 edges
+    poisoned = _synthetic_ba(rng, 4096, 12, 64, dev, True)
+    poisoned[2][100] = float("nan")                         # point 100, all 12 edges
     cases.append(("synthetic, a NaN point", poisoned))
+    cases.append(("synthetic, camera 3's edges padded with weight 1, slots 16-63 empty",
+                  _synthetic_ba(rng, 4096, 12, 64, dev, True, drop_cam=3)))
+    cases.append(("synthetic, 16 cameras in 512 slots (global BA's C)",
+                  _synthetic_ba(rng, 4096, 12, 512, dev, True)))
     for what, args in cases:
-        got, want = cb.ba_edge_terms(*args), cb.ba_edge_terms_plain(*args)
+        got, again = cb.ba_assemble(*args), cb.ba_assemble(*args)
+        want = cb.ba_assemble_plain(*args)
         torch.cuda.synchronize()
-        worst = _ba_rows_close(what, got, want, errs)
-        err_k, err_t = float(got[cb.BA_ROW_ERR].sum()), float(want[cb.BA_ROW_ERR].sum())
-        if "NaN" in what and not (np.isnan(err_k) and np.isnan(err_t)):
-            raise AssertionError(f"ba_edge {what}: err {err_k}, twin {err_t} (both must be NaN)")
-        log(f"[parity] ba_edge {what} (E={args[2].shape[1]}): rows within {worst:.3g} of their "
-            f"block's magnitude (tolerance {K9_TOL}), err {err_k:.6g} vs twin {err_t:.6g}")
+        _lin_equal(what, got, want, errs)
+        _lin_equal(f"{what}, a second launch", again, got, {"ba_edge": 0.0})
+        lin = schur_ba.Lin(*got)
+        nan_cams = int(torch.isnan(lin.Hcc).any(dim=(1, 2)).sum())
+        if "NaN" in what and not (bool(lin.err.isnan()) and 0 < nan_cams < lin.Hcc.shape[0]):
+            raise AssertionError(f"ba_assemble {what}: err {float(lin.err)}, {nan_cams} cameras "
+                                 f"with a NaN Hcc (err must be NaN, the NaN confined to the "
+                                 f"point's cameras)")
+        if "masked" in what and (float(lin.err) != 0.0 or bool(lin.Hcc.any())):
+            raise AssertionError(f"ba_assemble {what}: err {float(lin.err)}, Hcc not zero")
+        if "padded" in what and (bool(lin.Hcc[3].any()) or bool(lin.Hcc[16:].any())):
+            raise AssertionError(f"ba_assemble {what}: an empty camera's Hcc is not zero")
+        if "512" in what and int(lin.Hcc.any(dim=(1, 2)).sum()) != 16:
+            raise AssertionError(f"ba_assemble {what}: not 16 cameras with a nonzero Hcc")
+        log(f"[parity] ba_assemble {what} (Q={args[2].shape[0]} x O={args[5].shape[1]}, "
+            f"C={args[1].shape[0]}): every field bit-exact, a second launch identical; err "
+            f"{float(lin.err):.6g}, {nan_cams} cameras with a NaN Hcc")
 
     fusion = recorded["proj_match@event"]
     into = max(fusion[:-1], key=lambda a: int(a[4].sum()))      # the most points in view
@@ -707,7 +741,7 @@ def main_path_phase(cfg, poses, frames, dev):
     torch.cuda.synchronize()
     front_launches = dict(launch.LAUNCHES)
     n_levels = cfg.n_levels
-    per_frame = {"pyramid": n_levels - 1, "dense_stage": n_levels,
+    per_frame = {"pyramid": n_levels - 1, "dense_stage": 1,
                  "brief": sum(1 for b in cfg.features_per_level() if b > 0)}
     expected = {**dict.fromkeys(launch.LAUNCHES, 0),
                 **{k: v * N_FRONT for k, v in per_frame.items()}}
@@ -1041,16 +1075,14 @@ def _epi_match_bytes(args, cands):
             + 32 * sum(int(c.any(0).sum()) for c in cands) + 8 * b * n)
 
 
-def _ba_edge_bytes(args):
+def _ba_assemble_bytes(args):
     """The bytes K9's function must move: per edge the observation (u, v,
-    uR), inv_sigma2, stereo, mask and a camera index in and the 57 rows it
-    defines out (rows 57-63 are padding); each camera's pose and each
-    point's position in once (the kernel's interface repeats them per
-    edge)."""
-    pose_rows, Xw = args[1], args[2]
-    n_cam = torch.unique(pose_rows, dim=1).shape[1]
-    n_pt = torch.unique(Xw, dim=1).shape[1]
-    return 4 * (Xw.shape[1] * (6 + 1 + cb.BA_ROW_DEPTH + 1) + 12 * n_cam + 3 * n_pt)
+    uR), inv_sigma2, stereo, mask and a camera index in (28) and We, chi2
+    and depth_ok out (77); per point its position and validity in (13) and
+    Hpp's 6 entries, bp and pt_on out (37); per camera its pose's 12
+    entries in (48) and Hcc's 21 entries and bc out (108); err out."""
+    poses, points, edge_mask = args[1], args[2], args[5]
+    return 105 * edge_mask.numel() + 50 * points.shape[0] + 156 * poses.shape[0] + 4
 
 
 def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, events, dev,
@@ -1086,7 +1118,8 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
         launch.reset_launches()
         evs = _profile(fn, 1)
         top = sorted(evs, key=lambda e: -e.self_device_time_total)[:10]
-        hand = sum(e.count for e in evs if any(f"{k}(" in e.key for k in HAND_KERNELS))
+        hand = sum(e.count for e in evs
+                   if any(f"{k}(" in e.key or f"{k}<" in e.key for k in HAND_KERNELS))
         log(f"[timing] {card}: device time of one {name} by kernel (profiler): "
             f"{sum(e.count for e in evs)} device activities, {hand} of the "
             f"{sum(launch.LAUNCHES.values())} hand-kernel launches among them; " +
@@ -1116,7 +1149,7 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
     ext, pyr, levels = kernel_inputs(cfg, img, dev)
     lv0, blur0, ys, xs, dx, dy = levels[0]
     taps = ext.pyramid_taps()
-    args = (lv0, cfg.ini_th_fast, cfg.min_th_fast, *_region(*lv0.shape))
+    dense_args = _dense_args(cfg, levels, ext)
     k4 = recorded["best_two"][0]
     k5 = recorded["proj_match"][0]
     k6 = recorded["pose_lm"][0]
@@ -1137,16 +1170,17 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
              for b in range(k8[2].shape[0])]
     n8 = sum(int(c.sum()) for c in cand8)
     pairs8 = int(k8[1].sum()) * int((k8[7] & k8[9]).sum())
-    e6, e9 = k6[2].shape[0], k9[2].shape[1]
+    e6, e9 = k6[2].shape[0], k9[5].numel()
     resize_ops = sum(3 * h * pw + 3 * h * w for (ph, pw), (h, w) in
                      zip([p.shape for p in pyr[:-1]], [p.shape for p in pyr[1:]]))
     calls = {   # kernel: (shapes, kernel call, twin call, inputs or bytes, operations)
         "pyramid": (f"{H}x{W} -> {cfg.n_levels - 1} levels",
                     lambda: ce.pyramid(img, taps), lambda: ce.pyramid_plain(img, taps),
                     (img, taps), resize_ops),
-        "dense_stage": (f"{H}x{W}", lambda: ce.dense_stage(*args, taps=ext.gauss),
-                        lambda: ce.dense_stage_plain(*args, taps=ext.gauss),
-                        (lv0, ext.gauss), 124 * lv0.numel()),
+        "dense_stage": (f"{H}x{W} pyramid, {len(levels)} levels, frame (one launch)",
+                        lambda: ce.dense_stage_levels(*dense_args),
+                        lambda: ce.dense_stage_levels_plain(*dense_args),
+                        (dense_args[0], ext.gauss), 124 * sum(lv.numel() for lv in pyr)),
         "brief": (f"{ys.shape[0]} keypoints on {H}x{W}",
                   lambda: ce.brief(blur0, ys, xs, dx, dy),
                   lambda: ce.brief_plain(blur0, ys, xs, dx, dy),
@@ -1167,10 +1201,17 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
                       lambda: cm.epi_best_two(*k8), lambda: cm.epi_best_two_plain(*k8),
                       _epi_match_bytes(k8, cand8),
                       k8[1].numel() + k8[7].numel() + 9 * pairs8 + 24 * n8),
-        "ba_edge": (f"E={e9} (4096 points x 12), keyframe event",
-                    lambda: cb.ba_edge_terms(*k9), lambda: cb.ba_edge_terms_plain(*k9),
-                    _ba_edge_bytes(k9), 600 * e9),
+        "ba_edge": (f"the whole assembly (schur_ba._assemble), E={e9} ({k9[2].shape[0]} points "
+                    f"x {k9[5].shape[1]}), C={k9[1].shape[0]}, keyframe event",
+                    lambda: cb.ba_assemble(*k9), lambda: cb.ba_assemble_plain(*k9),
+                    _ba_assemble_bytes(k9), 600 * e9),
     }
+    # one PyTorch call of the same function, where there is one: K1's taps are
+    # cv::resize INTER_LINEAR with pixel centres and clamped taps, which is
+    # F.interpolate's bilinear without corner alignment or antialiasing
+    # (one call per level of the cascade)
+    sizes = [tuple(p.shape) for p in pyr[1:]]
+    libraries = {"pyramid": lambda: _interpolate_pyramid(img, sizes)}
     per_call = {}
     for name, (shapes, kernel, twin, ins, ops) in calls.items():
         reps = 10 if name == "pose_lm" else 50
@@ -1184,12 +1225,19 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
         bound_ms, bound_by = _bound(n_bytes, ops)
         per_call[name] = dict(ms=ms, plain_ms=plain_ms, device_ms=dev_k, bound_ms=bound_ms,
                               bound_by=bound_by, library_ms=None)
+        lib = ""
+        if name in libraries:
+            lib_ms, lib_dev = _event_ms(libraries[name], reps), _queued_ms(libraries[name])
+            diff = max(_max_abs(a, b) for a, b in zip(libraries[name](), kernel()[1:]))
+            per_call[name].update(library_ms=lib_ms, library_device_ms=lib_dev)
+            lib = (f"; the library call {lib_ms:.4f} ms per call, device time {lib_dev:.4f} ms "
+                   f"(queued), max |diff| from the kernel {diff:.3g}")
         log(f"[timing] {card}: {name} ({shapes}): per call (CUDA events, back to "
             f"back) kernel {ms:.4f} ms, twin {plain_ms:.4f} ms; device time kernel "
             f"{dev_k:.4f} ms (calls queued behind a sleeping kernel; the profiler reads "
             f"{prof_k:.4f} from {prof_n:.1f} device activities per call of {launched} "
             f"launches), twin {dev_t:.4f} ms (profiler); bound {bound_ms:.4f} ms by "
-            f"{bound_by} ({n_bytes} bytes, {ops:.3g} operations)")
+            f"{bound_by} ({n_bytes} bytes, {ops:.3g} operations){lib}")
         if dev_k < bound_ms:
             raise AssertionError(f"{name}: device time {dev_k:.4f} ms below its bound "
                                  f"{bound_ms:.4f} ms: the bound counts work the function "
@@ -1202,7 +1250,7 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
         f" ms, twin {_event_ms(lambda: cm.projection_best_two_plain(*fusion), 10):.4f} ms per call; "
         f"device time kernel {union_ms:.4f} ms (queued)")
     per_call["pose_lm"]["split"] = k6_split(k6, card)
-    frame_sums(cfg, levels, ext, per_call, card)
+    brief_frame(levels, per_call, card)
     return per_call
 
 
@@ -1225,24 +1273,30 @@ def k6_split(k6, card):
     return split
 
 
-def frame_sums(cfg, levels, ext, per_call, card):
-    """K2 and K3 over every level of frame 0, as one frame runs them: device
-    time (queued clock) and bound per frame, beside the level-0 call."""
-    dense = [(lv, cfg.ini_th_fast, cfg.min_th_fast, *_region(*lv.shape)) for lv, *_ in levels]
-    for name, calls, bounds in (
-            ("dense_stage", [lambda a=a: ce.dense_stage(*a, taps=ext.gauss) for a in dense],
-             [_bound(_nbytes(a[0], ext.gauss, ce.dense_stage(*a, taps=ext.gauss)),
-                     124 * a[0].numel())[0] for a in dense]),
-            ("brief", [lambda a=lvl[1:]: ce.brief(*a) for lvl in levels],
-             [_bound(_brief_bytes(*lvl[1:]), 1024 * lvl[2].shape[0])[0] for lvl in levels])):
-        ms = _queued_ms(lambda calls=calls: [c() for c in calls])
-        per_call[name].update(frame_device_ms=ms, frame_bound_ms=sum(bounds),
-                              frame_launches=len(calls))
-        log(f"[timing] {card}: {name} per frame ({len(calls)} levels): device time {ms:.4f} ms "
-            f"(queued), bound {sum(bounds):.4f} ms")
-        if ms < sum(bounds):
-            raise AssertionError(f"{name}: device time per frame {ms:.4f} ms below its bound "
-                                 f"{sum(bounds):.4f} ms")
+def _interpolate_pyramid(img, sizes):
+    """K1's function by PyTorch's own resize: each level from the one before
+    by F.interpolate (bilinear, pixel centres, no antialiasing)."""
+    out = [img]
+    for h, w in sizes:
+        out.append(torch.nn.functional.interpolate(
+            out[-1][None, None], size=(h, w), mode="bilinear", align_corners=False,
+            antialias=False)[0, 0])
+    return out[1:]
+
+
+def brief_frame(levels, per_call, card):
+    """K3 over every level of frame 0, as one frame runs it: device time
+    (queued clock) and bound per frame, beside the level-0 call. (K2's row
+    is per frame already: one launch covers the levels.)"""
+    bound = sum(_bound(_brief_bytes(*lvl[1:]), 1024 * lvl[2].shape[0])[0] for lvl in levels)
+    ms = _queued_ms(lambda: [ce.brief(*lvl[1:]) for lvl in levels])
+    per_call["brief"].update(frame_device_ms=ms, frame_bound_ms=bound,
+                             frame_launches=len(levels))
+    log(f"[timing] {card}: brief per frame ({len(levels)} levels): device time {ms:.4f} ms "
+        f"(queued), bound {bound:.4f} ms")
+    if ms < bound:
+        raise AssertionError(f"brief: device time per frame {ms:.4f} ms below its bound "
+                             f"{bound:.4f} ms")
 
 
 def k7_path(recorded):

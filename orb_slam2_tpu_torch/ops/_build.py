@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Per-source flags. -fmad=false: no multiply-add is contracted into an FMA,
 # so a kernel that performs its twin's float32 operations in the twin's
 # order rounds every term as the twin does: the pose sweep (K6/K7), the
-# epipolar gate (K8) and the BA edge terms (K9).
+# epipolar gate (K8) and the BA assembly (K9).
 SOURCE_FLAGS = {name: ("-fmad=false",) for name in ("pose_lm.cu", "epi_match.cu",
                                                      "ba_edge.cu")}
 LIB_NAME = "liborb_kernels.so"
@@ -38,9 +38,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # src, src_h, src_w, dst, dst_h, dst_w, iy, wy, ix, wx, stream
     "orb_resize_level": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P),
-    # img, h, w, taps, ini_th, min_th, min_bx, max_bx, min_by, max_by,
-    # score_nms, hi, blur, stream
-    "orb_dense_stage": (_P, _I, _I, _P, _F, _F, _I, _I, _I, _I, _P, _P, _P, _P),
+    # n levels, ptrs (4n host pointers), dims (6n host ints), taps, ini_th,
+    # min_th, stream
+    "orb_dense_stage_levels": (_I, _P, _P, _P, _F, _F, _P),
     # blur, h, w, ys, xs, dx, dy, n, out, stream
     "orb_brief": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P),
     # desc_a, n, desc_b, m, mask, best, idx, second, stream
@@ -60,8 +60,11 @@ SIGNATURES = {
     # desc1, un1, la, lb, lc, desc2, xy2, un2, sig, far, n_nb, n, best, idx,
     # stream
     "orb_epi_match": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
-    # par, pose_rows, xw, obs, inv_s2, stereo, mask, e, robust, out, stream
-    "orb_ba_edge": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
+    # fx, fy, cx, cy, bf, d2m, d2s, robust, poses, points, pt_valid, cam, obs,
+    # inv_s2, stereo, mask, order, cam_start, Q, O, C, Hcc, bc, Hpp, bp, We,
+    # pt_on, err, chi2, depth_ok, partial, err_pt, counters, stream
+    "orb_ba_assemble": (_P, _P, _P, _P, _P, _F, _F, _I, *(_P,) * 10, _I, _I, _I,
+                        *(_P,) * 13),
 }
 
 

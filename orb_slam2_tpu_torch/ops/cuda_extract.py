@@ -4,7 +4,8 @@ their wrappers (port of `orb_slam2_tpu/ops/pallas_extract.py`).
 | wrapper       | kernel (csrc/)    | replaces (TPU kernel)                          | twin                |
 |---------------|-------------------|------------------------------------------------|---------------------|
 | `pyramid`     | `pyramid.cu`      | `pallas_extract.pyramid_pallas`                | `pyramid_plain`     |
-| `dense_stage` | `dense_stage.cu`  | `pallas_extract.dense_stage_pallas`            | `dense_stage_plain` |
+| `dense_stage_levels` | `dense_stage.cu` | `pallas_extract.dense_stage_pallas` | `dense_stage_levels_plain` |
+| `dense_stage` (one level) | `dense_stage.cu` | the same          | `dense_stage_plain` |
 | `brief`       | `brief.cu`        | `pallas_extract.brief_sample_pallas` + packing | `brief_plain`       |
 
 Each wrapper dispatches on the device of its input (`launch.py`): a CPU
@@ -17,6 +18,9 @@ no FMA).
 """
 from __future__ import annotations
 
+import ctypes
+import itertools
+
 import torch
 
 from . import fast as fast_ops
@@ -26,6 +30,7 @@ from .launch import check as _check, launch as _launch, on_cpu as _on_cpu, ptr a
 NEG = float("-inf")
 BRIEF_PAIRS = 256
 _DENSE_PAD = 5     # the dense kernel's reflect-101 halo (blur 4, FAST 3, NMS +1)
+_DENSE_MAX_LEVELS = 16
 
 
 # ---------------------------------------------------------------------------
@@ -87,27 +92,53 @@ def dense_stage_plain(img, ini_th: float, min_th: float,
     return score_nms, hi, image_ops.gaussian_blur(img, taps=taps)
 
 
+def dense_stage_levels_plain(levels, ini_th: float, min_th: float, regions, taps=None):
+    """`dense_stage_plain` on each level: levels a list of (H, W) float32
+    images, regions their (min_bx, max_bx, min_by, max_by). Returns one
+    (score_nms, hi, blur) per level."""
+    return [dense_stage_plain(img, ini_th, min_th, *region, taps=taps)
+            for img, region in zip(levels, regions)]
+
+
+def dense_stage_levels(levels, ini_th: float, min_th: float, regions, taps=None):
+    """Kernel wrapper of `dense_stage_levels_plain`: one launch over the
+    tiles of every level (`csrc/dense_stage.cu`). The outputs are views into
+    one allocation of 3 x sum(H*W) float32. taps: the (9,) float32 Gaussian
+    taps on the levels' device (built here when None)."""
+    if _on_cpu(levels[0]):
+        return dense_stage_levels_plain(levels, ini_th, min_th, regions, taps)
+    dev = levels[0].device
+    if len(levels) != len(regions) or not 1 <= len(levels) <= _DENSE_MAX_LEVELS:
+        raise ValueError(f"dense_stage_levels: {len(levels)} levels and {len(regions)} "
+                         f"regions (1 to {_DENSE_MAX_LEVELS} levels)")
+    if taps is None:
+        taps = torch.as_tensor(image_ops._gaussian_kernel_1d(9, 2.0), device=dev)
+    _check(taps, torch.float32, (9,), dev, "dense_stage taps")
+    sizes = [tuple(img.shape) for img in levels]
+    for lvl, (img, (h, w)) in enumerate(zip(levels, sizes)):
+        if img.dim() != 2 or h <= _DENSE_PAD or w <= _DENSE_PAD:
+            raise ValueError(f"dense_stage: level {lvl} of shape {tuple(img.shape)} is too "
+                             f"small for the {_DENSE_PAD}-px reflect halo")
+        _check(img, torch.float32, (h, w), dev, f"dense_stage level {lvl}")
+    n_px = [h * w for h, w in sizes]
+    buf = torch.empty((3, sum(n_px)), dtype=torch.float32, device=dev)
+    outs = [tuple(part.view(h, w) for part in buf[:, off:off + n].unbind(0))
+            for off, n, (h, w) in zip(itertools.accumulate([0] + n_px), n_px, sizes)]
+    ptrs = (ctypes.c_uint64 * (4 * len(levels)))(*[
+        t.data_ptr() for img, out in zip(levels, outs) for t in (img, *out)])
+    dims = (ctypes.c_int * (6 * len(levels)))(*[
+        int(v) for (h, w), region in zip(sizes, regions) for v in (h, w, *region)])
+    _launch("dense_stage", "orb_dense_stage_levels", dev, len(levels), ptrs, dims, _p(taps),
+            float(ini_th), float(min_th))
+    return outs
+
+
 def dense_stage(img, ini_th: float, min_th: float,
                 min_bx: int, max_bx: int, min_by: int, max_by: int, taps=None):
-    """Kernel wrapper of `dense_stage_plain`. taps: the (9,) float32
-    Gaussian taps on img's device (built here when None)."""
-    if _on_cpu(img):
-        return dense_stage_plain(img, ini_th, min_th, min_bx, max_bx, min_by,
-                                 max_by, taps)
-    h, w = img.shape
-    if h <= _DENSE_PAD or w <= _DENSE_PAD:
-        raise ValueError(f"dense_stage: image {h}x{w} is too small for the "
-                         f"{_DENSE_PAD}-px reflect halo")
-    if taps is None:
-        taps = torch.as_tensor(image_ops._gaussian_kernel_1d(9, 2.0), device=img.device)
-    _check(img, torch.float32, (h, w), img.device, "dense_stage img")
-    _check(taps, torch.float32, (9,), img.device, "dense_stage taps")
-    score_nms, hi, blur = (torch.empty((h, w), dtype=torch.float32, device=img.device)
-                           for _ in range(3))
-    _launch("dense_stage", "orb_dense_stage", img.device, _p(img), h, w, _p(taps),
-            float(ini_th), float(min_th), int(min_bx), int(max_bx), int(min_by),
-            int(max_by), _p(score_nms), _p(hi), _p(blur))
-    return score_nms, hi, blur
+    """Kernel wrapper of `dense_stage_plain`: `dense_stage_levels` on one
+    level."""
+    return dense_stage_levels([img], ini_th, min_th, [(min_bx, max_bx, min_by, max_by)],
+                              taps)[0]
 
 
 def candidates_from_dense(score_nms, hi, min_bx: int, max_bx: int,

@@ -5,8 +5,9 @@ pyramid -> dense FAST score maps with dual-threshold cell fallback ->
 uniform-grid budget selection -> intensity-centroid orientation -> 9x9
 sigma=2 blur -> steered BRIEF. The output is a fixed-capacity `Keypoints`
 record: every dynamic count of the reference becomes a validity mask, and
-nothing waits on the device. Per level the hot path launches three CUDA
-kernels (`cuda_extract`): a pyramid level, the dense stage, BRIEF.
+nothing waits on the device. Per frame the hot path launches the pyramid
+(`cuda_extract.pyramid`, a launch per level), the dense stage once over all
+levels (`cuda_extract.dense_stage_levels`) and BRIEF per level.
 """
 from __future__ import annotations
 
@@ -74,18 +75,21 @@ def build_pyramid(img, cfg: SlamConfig, taps=None):
     return cuda_extract.pyramid(img, taps)
 
 
-def extract_level(img, budget: int, ini_th: float, min_th: float,
-                  per_cell: int = 1, ic_weights=None, points=None, gauss=None):
-    """One pyramid level -> (ys, xs, resp, valid, angle, desc), all
-    (budget, ...). ic_weights / points / gauss are the constant tables of
-    `ORBExtractor` on img's device (built per call when None)."""
-    h, w = img.shape
+def level_region(h: int, w: int):
+    """(min_bx, max_bx, min_by, max_by) of an h x w level: the borders of
+    the reference's `ComputeKeyPointsOctTree`."""
     min_b = EDGE_THRESHOLD - 3
-    max_bx = w - EDGE_THRESHOLD + 3
-    max_by = h - EDGE_THRESHOLD + 3
+    return min_b, w - EDGE_THRESHOLD + 3, min_b, h - EDGE_THRESHOLD + 3
 
-    score_nms, hi, blurred = cuda_extract.dense_stage(
-        img, ini_th, min_th, min_b, max_bx, min_b, max_by, taps=gauss)
+
+def extract_level(img, dense, budget: int, per_cell: int = 1, ic_weights=None,
+                  points=None):
+    """One pyramid level and its dense stage's (score_nms, hi, blur) ->
+    (ys, xs, resp, valid, angle, desc), all (budget, ...). ic_weights /
+    points are the constant tables of `ORBExtractor` on img's device (built
+    per call when None)."""
+    min_b, max_bx, _, max_by = level_region(*img.shape)
+    score_nms, hi, blurred = dense
     cand_score = cuda_extract.candidates_from_dense(
         score_nms, hi, min_b, max_bx, min_b, max_by)
     ys, xs, resp, valid = select_ops.select_uniform(
@@ -137,12 +141,14 @@ class ORBExtractor(nn.Module):
         cfg = self.cfg
         dev = img.device
         pyr = build_pyramid(img, cfg, taps=self.pyramid_taps())
+        dense = cuda_extract.dense_stage_levels(
+            pyr, cfg.ini_th_fast, cfg.min_th_fast,
+            [level_region(*lv.shape) for lv in pyr], taps=self.gauss)
         xy_all, lvl_all, ang_all, resp_all, desc_all, valid_all = [], [], [], [], [], []
         for lvl, (budget, s) in enumerate(zip(self.budgets, cfg.scale_factors)):
             ys, xs, resp, valid, angle, desc = extract_level(
-                pyr[lvl], budget, cfg.ini_th_fast, cfg.min_th_fast,
-                per_cell=self.per_cell, ic_weights=self.ic_weights,
-                points=self.brief_points, gauss=self.gauss)
+                pyr[lvl], dense[lvl], budget, per_cell=self.per_cell,
+                ic_weights=self.ic_weights, points=self.brief_points)
             xy_all.append(torch.stack([xs.to(torch.float32) * s,
                                        ys.to(torch.float32) * s], dim=-1))
             lvl_all.append(torch.full((budget,), lvl, dtype=torch.int32, device=dev))

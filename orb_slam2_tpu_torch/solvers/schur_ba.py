@@ -10,14 +10,16 @@ L = chol(H_pp)^-T and U = sum_o A_e (A_e = W_e L) aggregated per camera,
 S_corr = U U^T is one matrix product. S is solved by a dense Cholesky, the
 points are back-substituted, and LM damps and iterates.
 
-The per-edge terms come from the K9 kernel on a CUDA tensor and its twin
-on a CPU tensor (`ops/cuda_ba.py`); each edge's pose is a gather by its
-clamped camera index, so a padded edge (camera -1) sees camera 0's pose, as
-the reference's XLA path does. The per-camera sums are products with the
-(E, C) camera one-hot outside any kernel, as in the reference: cuBLAS
-products and torch's reductions involve no atomics, so a solve repeats bit
-for bit. `S_corr` is `torch.matmul` (TF32 off, pinned in `__init__`), the
-Cholesky `torch.linalg.cholesky_ex`/`cholesky_solve`.
+The assembly (per-edge terms, per-camera and per-point sums, `Lin`) is
+one launch of the K9 kernel on a CUDA tensor and its twin on a CPU tensor
+(`ops/cuda_ba.ba_assemble`); each edge's pose is read by its clamped camera
+index, so a padded edge (camera -1) sees camera 0's pose, as the
+reference's XLA path does, but joins no camera's sums. Its sums run in a
+fixed order with no float atomics, so a solve repeats bit for bit; a NaN
+edge makes only its own camera's Hcc NaN (the reference's one-hot product
+spreads it to every camera), and the step is rejected either way.
+`S_corr` is `torch.matmul` (TF32 off, pinned in `__init__`), the Cholesky
+`torch.linalg.cholesky_ex`/`cholesky_solve`.
 """
 from __future__ import annotations
 
@@ -65,61 +67,43 @@ class Lin(NamedTuple):
 
 
 class _Edges(NamedTuple):
-    """What the edge pass needs of a problem, laid out once per solve."""
-    cam: torch.Tensor        # (E,) int64 clamped camera slot of each edge
+    """What the assembly needs of a problem, laid out once per solve."""
+    cam: torch.Tensor        # (E,) int32 camera slot of each edge, clamped to [0, C)
     onehot: torch.Tensor     # (E,C) float32, zero rows for padded edges
     obs: torch.Tensor        # (3,E)
     stereo: torch.Tensor     # (E,) float32 0/1
     inv_sigma2: torch.Tensor  # (E,)
+    order: torch.Tensor      # (E,) int32: the edges that join a camera, camera-major
+    cam_start: torch.Tensor  # (C+1,) int32: camera c's edges are order[cam_start[c]:cam_start[c+1]]
 
 
 def _edges(prob: BAProblem, inv_sigma2) -> _Edges:
+    """The edge layout of a problem, on its device with no host sync: the
+    camera-major list is a stable sort of the edges by camera (edges with
+    no camera last), so each camera's edges keep their edge order."""
     C = prob.poses.shape[0]
     oc = prob.obs_cam.reshape(-1)
     slots = torch.arange(C, dtype=oc.dtype, device=oc.device)
-    return _Edges(cam=torch.clamp(oc, 0, C - 1).long(),
+    key = torch.where((oc >= 0) & (oc < C), oc, C).long()
+    order = torch.argsort(key, stable=True)
+    cam_start = torch.searchsorted(key[order], torch.arange(C + 1, device=oc.device))
+    return _Edges(cam=torch.clamp(oc, 0, C - 1).to(torch.int32),
                   onehot=(oc[:, None] == slots[None, :]).to(torch.float32),
                   obs=prob.obs_uvr.reshape(-1, 3).T.contiguous(),
                   stereo=(prob.obs_uvr[..., 2] >= 0).reshape(-1).to(torch.float32),
-                  inv_sigma2=inv_sigma2.reshape(-1).contiguous())
-
-
-def _edge_terms(cam, prob: BAProblem, edges: _Edges, poses, points, edge_mask,
-                robust: bool):
-    """The (64,E) per-edge rows (`cuda_ba.BA_ROW_*`) at poses and points:
-    each edge's pose gathered by its clamped camera slot, its point
-    repeated over the O observation columns."""
-    C = poses.shape[0]
-    Q, O = prob.obs_cam.shape
-    rows = torch.cat([poses[:, :3, :3].reshape(C, 9), poses[:, :3, 3]], dim=1)   # (C,12)
-    pose_rows = rows.index_select(0, edges.cam).T.contiguous()
-    Xw = points[:, None, :].expand(Q, O, 3).reshape(-1, 3).T.contiguous()
-    return cuda_ba.ba_edge_terms(cam, pose_rows, Xw, edges.obs, edges.inv_sigma2,
-                                 edges.stereo, edge_mask.reshape(-1).contiguous(), robust)
+                  inv_sigma2=inv_sigma2.reshape(-1).contiguous(),
+                  order=order.to(torch.int32), cam_start=cam_start.to(torch.int32))
 
 
 def _assemble(cam, prob: BAProblem, edges: _Edges, poses, points, edge_mask,
               robust: bool) -> Lin:
     """The undamped normal-equation pieces at the current linearization
-    point (the reference's `_assemble_pallas`): the K9 edge pass, then the
-    per-camera sums as products with the camera one-hot and the per-point
-    sums over O. Damping and the solve live in `_solve_step`, so a rejected
-    step retries with a larger lambda without another edge pass."""
-    C = poses.shape[0]
-    Q, O = prob.obs_cam.shape
-    out = _edge_terms(cam, prob, edges, poses, points, edge_mask, robust)
-    dev = out.device
-    R = cuda_ba
-    Hcc = (out[R.BA_ROW_HCC:R.BA_ROW_HCC + 21] @ edges.onehot).T[
-        :, cuda_ba.symmetric_index(6, dev).reshape(-1)].reshape(C, 6, 6)
-    bc = (out[R.BA_ROW_BC:R.BA_ROW_BC + 6] @ edges.onehot).T
-    Hpp = out[R.BA_ROW_HPP:R.BA_ROW_HPP + 6].reshape(6, Q, O).sum(-1).T[
-        :, cuda_ba.symmetric_index(3, dev).reshape(-1)].reshape(Q, 3, 3)
-    bp = out[R.BA_ROW_BP:R.BA_ROW_BP + 3].reshape(3, Q, O).sum(-1).T
-    We = out[R.BA_ROW_W:R.BA_ROW_W + 18].reshape(18, Q, O).permute(1, 2, 0).reshape(Q, O, 6, 3)
-    pt_on = prob.pt_valid & ((edge_mask > 0).sum(dim=1) > 0)
-    return Lin(Hcc, bc, Hpp, bp, We, pt_on, out[R.BA_ROW_ERR].sum(),
-               out[R.BA_ROW_CHI2].reshape(Q, O), out[R.BA_ROW_DEPTH].reshape(Q, O) > 0)
+    point (the reference's `_assemble_pallas`): one K9 launch
+    (`cuda_ba.ba_assemble`). Damping and the solve live in `_solve_step`,
+    so a rejected step retries with a larger lambda without another edge
+    pass."""
+    return Lin(*cuda_ba.ba_assemble(cam, poses, points, prob.pt_valid, edges, edge_mask,
+                                    robust))
 
 
 def _chol3x3(H):

@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""K5 and K6 of two checkouts of the port, timed on one card in one call.
+"""Kernels of two checkouts of the port, timed on one card in one call.
 
     python3 scripts/kernel_ab.py OTHER_CHECKOUT [--out chiprun_out/kernel_ab.json]
 
-Records, with this checkout's `chip_smoke.py`, the arguments the main path
-hands K5 (frame 1's local-map search, fusion's union at the second keyframe
-event) and K6 (frame 1's first pose solve), then times the kernels of
-OTHER_CHECKOUT, this checkout, this checkout and OTHER_CHECKOUT again, each
-in a process of its own that imports the package, and builds the kernels,
-of the checkout under test. Device time is `chip_smoke._queued_ms` of that
-checkout (20 calls queued behind a sleeping kernel, timed by CUDA events).
-K6 runs at the schedules (rounds x iterations) 1x0, 2x0, 1x10 and 4x10: the
-slope from 1x0 to 1x10 is one LM iteration (a sweep with its reduction, then
-the 6x6 solve, the retract and the accept test), 2x0 - 1x0 one sweep (and a
-reclassification), and their difference the solve. K7 is timed too. Prints
-one JSON line per run and a summary; needs a CUDA card.
+Records, with this checkout's `chip_smoke.py`, frame 0 and the arguments the
+main path hands K5 (frame 1's local-map search, fusion's union at the second
+keyframe event), K6 (frame 1's first pose solve) and local BA (the keyframe
+event of frame 6), then times them in OTHER_CHECKOUT, this checkout, this
+checkout and OTHER_CHECKOUT again, each in a process of its own that
+imports the package, and builds the kernels, of the checkout under test.
+Device time is `chip_smoke._queued_ms` of that checkout (20 calls queued
+behind a sleeping kernel, timed by CUDA events). Timed:
+- K2 per frame over frame 0's 8 pyramid levels, as the checkout's extractor
+  runs it (one launch, or a launch per level in a checkout without
+  `dense_stage_levels`);
+- `schur_ba._assemble` as a whole at the event's E = 4096 x 12 edges and
+  C = 64 cameras, with the profiler's device activities per call (a fresh
+  process records every one);
+- K6 at the schedules (rounds x iterations) 1x0, 2x0, 1x10 and 4x10: the
+  slope from 1x0 to 1x10 is one LM iteration (a sweep with its reduction,
+  then the 6x6 solve, the retract and the accept test), 2x0 - 1x0 one sweep
+  (and a reclassification), and their difference the solve; K7; K5.
+Prints one JSON line per run and a summary; needs a CUDA card.
 """
 import argparse
 import json
@@ -27,13 +34,15 @@ SCHEDULES = ((1, 0), (2, 0), (1, 10), (4, 10))
 
 
 def _portable(x):
-    """Tensors to the CPU and the camera to a dict, for torch.save."""
+    """Tensors to the CPU and named tuples (Camera, BAProblem) to dicts, for
+    torch.save."""
     import torch
     if isinstance(x, torch.Tensor):
         return x.cpu()
     if hasattr(x, "_asdict"):
-        return {"camera": {k: _portable(v) for k, v in x._asdict().items()}}
-    if isinstance(x, tuple):
+        return {"__tuple__": type(x).__name__,
+                "fields": {k: _portable(v) for k, v in x._asdict().items()}}
+    if isinstance(x, (tuple, list)):
         return tuple(_portable(v) for v in x)
     if isinstance(x, dict):
         return {k: _portable(v) for k, v in x.items()}
@@ -43,10 +52,12 @@ def _portable(x):
 def _on_card(x, dev):
     import torch
     from orb_slam2_tpu_torch.geometry.camera import Camera
+    from orb_slam2_tpu_torch.solvers.schur_ba import BAProblem
     if isinstance(x, torch.Tensor):
         return x.to(dev)
-    if isinstance(x, dict) and "camera" in x:
-        return Camera(**{k: _on_card(v, dev) for k, v in x["camera"].items()})
+    if isinstance(x, dict) and "__tuple__" in x:
+        kind = {"Camera": Camera, "BAProblem": BAProblem}[x["__tuple__"]]
+        return kind(**{k: _on_card(v, dev) for k, v in x["fields"].items()})
     if isinstance(x, tuple):
         return tuple(_on_card(v, dev) for v in x)
     if isinstance(x, dict):
@@ -63,11 +74,23 @@ def record(path):
     uploads = [(torch.from_numpy(g).to(dev), torch.from_numpy(d).to(dev))
                for g, d in frames[:cs.N_RECORD]]
     recorded = {}
-    with cs.twins(), cs.recording(recorded):
-        cs.run_sequence(cfg, uploads)
+    from orb_slam2_tpu_torch.solvers import schur_ba
+    solve_ba, ba = schur_ba.solve_ba, []
+
+    def record_ba(cam, prob, level_sigma2, *args, **kw):
+        ba.append((cam, prob, tuple(level_sigma2)))
+        return solve_ba(cam, prob, level_sigma2, *args, **kw)
+
+    schur_ba.solve_ba = record_ba
+    try:
+        with cs.twins(), cs.recording(recorded):
+            cs.run_sequence(cfg, uploads)
+    finally:
+        schur_ba.solve_ba = solve_ba
     torch.cuda.synchronize()
     torch.save(_portable({"k5": recorded["proj_match"][0], "k6": recorded["pose_lm"][0][:7],
-                          "fusion": recorded["proj_match@event"][-1]}), path)
+                          "fusion": recorded["proj_match@event"][-1], "ba": ba[-1],
+                          "frame0": torch.from_numpy(frames[0][0])}), path)
 
 
 def time_kernels(path, label):
@@ -89,10 +112,50 @@ def time_kernels(path, label):
     res["pose_normal_eqs_ms"] = cs._queued_ms(lambda: cp.pose_normal_eqs(*k7))
     res["proj_match_frame1_ms"] = cs._queued_ms(lambda: cm.projection_best_two(*k5))
     res["proj_match_fusion_union_ms"] = cs._queued_ms(lambda: cm.projection_best_two(*fusion))
+    res.update(_dense_frame(rec["frame0"].to(dev), cs, dev))
+    res.update(_assemble(*rec["ba"], cs))
     res["shapes"] = {"pose_lm_edges": k6[2].shape[0], "proj_match_frame1": [
         k5[0].shape[0], k5[6].shape[0]], "proj_match_fusion_union": [fusion[0].shape[0],
                                                                      fusion[6].shape[0]]}
     print(json.dumps(res), flush=True)
+
+
+def _dense_frame(gray, cs, dev):
+    """K2 per frame on frame 0's pyramid, as the extractor of the checkout
+    runs it."""
+    import torch
+    from orb_slam2_tpu_torch.ops import cuda_extract as ce
+    from orb_slam2_tpu_torch.ops import extractor as ex
+    cfg = cs.bench_config()
+    ext = ex.extractor_for(cfg, cs.H, cs.W, dev)
+    pyr = ce.pyramid(gray.to(torch.float32), ext.pyramid_taps())
+    regions = [cs._region(*lv.shape) for lv in pyr]
+    th = (cfg.ini_th_fast, cfg.min_th_fast)
+    if hasattr(ce, "dense_stage_levels"):
+        fn = lambda: ce.dense_stage_levels(pyr, *th, regions, ext.gauss)
+    else:
+        fn = lambda: [ce.dense_stage(lv, *th, *r, taps=ext.gauss) for lv, r in zip(pyr, regions)]
+    return {"dense_stage_frame_ms": cs._queued_ms(fn)}
+
+
+def _assemble(cam, prob, level_sigma2, cs):
+    """`schur_ba._assemble` at the recorded event's first linearization, as
+    `solve_ba` sets it up: queued device time and the profiler's device
+    time and activities per call."""
+    import torch
+    from orb_slam2_tpu_torch.solvers import schur_ba
+    from orb_slam2_tpu_torch.utils.config import device_table
+    C = prob.poses.shape[0]
+    sigma2 = device_table(tuple(level_sigma2), prob.points.device)
+    inv_sigma2 = 1.0 / sigma2[torch.clamp(prob.obs_level, 0, sigma2.shape[0] - 1).long()]
+    mask = ((prob.obs_cam >= 0) & prob.pt_valid[:, None]
+            & prob.cam_valid[torch.clamp(prob.obs_cam, 0, C - 1).long()]).to(torch.float32)
+    edges = schur_ba._edges(prob, inv_sigma2)
+    fn = lambda: schur_ba._assemble(cam, prob, edges, prob.poses, prob.points, mask, True)
+    prof_ms, n_act = cs._device_ms(fn, 10)
+    return {"assemble_ms": cs._queued_ms(fn), "assemble_profiler_ms": prof_ms,
+            "assemble_device_activities": n_act,
+            "assemble_shape": [*prob.obs_cam.shape, C]}
 
 
 def main():
@@ -133,10 +196,10 @@ def main():
         line = child("time", tree, label).strip().splitlines()[-1]
         print(line, flush=True)
         runs.append(json.loads(line))
-    keys = [k for k in runs[0] if k.endswith("_ms")]
     # each kernel's lesser time of its two runs per checkout
     summary = {"card": card, "runs": runs, "best_of_two": {
-        lab: {k: sorted(r[k] for r in runs if r["label"] == lab)[0] for k in keys}
+        lab: {k: min(r[k] for r in runs if r["label"] == lab)
+              for k in next(r for r in runs if r["label"] == lab) if k.endswith("_ms")}
         for lab in ("other", "this")}}
     for lab, t in summary["best_of_two"].items():
         it = (t["pose_lm_1x10_ms"] - t["pose_lm_1x0_ms"]) / 10

@@ -13,11 +13,10 @@ comparisons are bit-exact. The pose kernels sum the edges in another order
 than their twins: K6 is held to Tcw within 1e-4 and equal inlier sets except
 at the chi2 threshold, K7 to the reference's own tolerance between its XLA
 and Pallas builds (H rtol 3e-4 atol 2e-3, b atol 2e-2). K8 decides integers
-from float32 values rounded as in its twin: bit-exact. K9 performs its
-twin's per-edge float32 operations in order: each block of its (64,E) rows
-within 1e-5 of the block's largest magnitude (entries reach 1e8, and an
-entry that is zero edge by edge holds only rounding noise), NaN where the
-twin has NaN.
+from float32 values rounded as in its twin: bit-exact. K9 (the whole BA
+assembly) performs its twin's per-edge float32 operations and sums in the
+same order: every field of `schur_ba.Lin` bit-exact, NaN where the twin has
+NaN.
 """
 import numpy as np
 import pytest
@@ -34,6 +33,7 @@ from orb_slam2_tpu_torch.ops import launch
 from orb_slam2_tpu_torch.ops import extractor as ex
 from orb_slam2_tpu_torch.pipeline import frame as frame_mod
 from orb_slam2_tpu_torch.pipeline import mapping_ops, tracking_step
+from orb_slam2_tpu_torch.solvers import schur_ba
 from orb_slam2_tpu_torch.utils.config import SlamConfig, SENSOR_RGBD
 from orb_slam2_tpu_torch.utils.synthetic import PlateWorld, loop_trajectory
 
@@ -86,6 +86,30 @@ def test_dense_stage_kernel_bit_exact(cuda, h, w):
         assert bool(torch.isfinite(got[0]).any())      # real corners were tested
 
 
+@pytest.mark.parametrize("h,w", [(480, 640), (100, 75), (37, 250)])
+def test_dense_stage_levels_one_launch_bit_exact(cuda, h, w):
+    """An 8-level pyramid in one launch: tiles overhang every level, and
+    the small levels are under 32 px wide (100x75: 28x21 at level 7) or
+    under 16 px tall (37x250: 13 at level 6); at the path's thresholds and
+    at a negative and an inverted pair, bit-exact against the twin."""
+    img = torch.from_numpy(_image(np.random.default_rng(h + w), h, w)).to(cuda)
+    sizes = [s for s in ex.pyramid_sizes(h, w, 8, 1.2) if min(s) > 5]
+    levels = ce.pyramid_plain(img, ex.pyramid_taps(sizes, cuda))
+    regions = [ex.level_region(*lv.shape) for lv in levels]
+    for ini_th, min_th in ((20.0, 7.0), (5.0, -1.0), (7.0, 20.0)):
+        want = ce.dense_stage_levels_plain(levels, ini_th, min_th, regions)
+        before = launch.LAUNCHES["dense_stage"]
+        got = ce.dense_stage_levels(levels, ini_th, min_th, regions)
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES["dense_stage"] == before + 1
+        for lvl, (g, wnt) in enumerate(zip(got, want)):
+            for name, a, b in zip(("score_nms", "hi", "blur"), g, wnt):
+                assert torch.equal(a, b), (ini_th, min_th, lvl, name)
+    assert got[0][0].data_ptr() + 4 * h * w == got[1][0].data_ptr()    # one allocation
+    with pytest.raises(ValueError):
+        ce.dense_stage_levels(levels * 3, 20.0, 7.0, regions * 3)      # 24 levels: over 16
+
+
 @pytest.mark.parametrize("h,w,n", [(480, 640, 217), (134, 179, 60), (30, 37, 13)])
 def test_brief_kernel_bit_exact(cuda, h, w, n):
     rng = np.random.default_rng(n)
@@ -131,9 +155,9 @@ def test_make_frame_rgbd_kernel_path_equals_twin_path(cuda, monkeypatch):
     got = frame_mod.make_frame_rgbd(gray, depth, cfg)
     torch.cuda.synchronize()
     assert launch.LAUNCHES == {**dict.fromkeys(launch.LAUNCHES, 0),
-                               "pyramid": 3, "dense_stage": 4, "brief": 4}
+                               "pyramid": 3, "dense_stage": 1, "brief": 4}
     monkeypatch.setattr(ce, "pyramid", ce.pyramid_plain)
-    monkeypatch.setattr(ce, "dense_stage", ce.dense_stage_plain)
+    monkeypatch.setattr(ce, "dense_stage_levels", ce.dense_stage_levels_plain)
     monkeypatch.setattr(ce, "brief", ce.brief_plain)
     want = frame_mod.make_frame_rgbd(gray, depth, cfg)
     torch.cuda.synchronize()
@@ -402,11 +426,12 @@ def test_tracking_step_kernel_path_equals_twin_path(cuda, monkeypatch):
     torch.cuda.synchronize()
     for name in ("best_two", "proj_match", "pose_lm"):
         assert launch.LAUNCHES[name] >= 2, launch.LAUNCHES
-    for name, twin in (("pyramid", ce.pyramid_plain), ("dense_stage", ce.dense_stage_plain),
+    for name, twin in (("pyramid", ce.pyramid_plain),
+                       ("dense_stage_levels", ce.dense_stage_levels_plain),
                        ("brief", ce.brief_plain), ("masked_best_two", cm.masked_best_two_plain),
                        ("projection_best_two", cm.projection_best_two_plain),
                        ("pose_lm", cp.pose_lm_plain)):
-        monkeypatch.setattr(ce if name in ("pyramid", "dense_stage", "brief") else
+        monkeypatch.setattr(ce if name in ("pyramid", "dense_stage_levels", "brief") else
                             cm if "best_two" in name else cp, name, twin)
     launch.reset_launches()
     want = run()
@@ -454,54 +479,110 @@ def test_epi_match_kernel_bit_exact(cuda, b, n):
     assert int((cm.epi_best_two(*args)[0] < cm.BIG).sum()) > 0 or n == 1
 
 
-def _ba_inputs(rng, q, o, dev, robust):
-    """K9's arguments at E = q * o edges: 16 cameras, points 4-15 m ahead,
-    5 % behind their camera, 1 % of the edges masked, 30 % stereo."""
-    e = q * o
-    T = se3.exp(torch.from_numpy(rng.normal(0, 0.1, (16, 6)).astype(np.float32)))
-    rows = torch.cat([T[:, :3, :3].reshape(16, 9), T[:, :3, 3]], 1)[rng.integers(0, 16, e)].T
+def _ba_problem(rng, q, o, c, dev, drop_cam=None):
+    """K9's arguments at E = q * o edges: 16 cameras in c slots (slots 0-15,
+    or every 32nd from slot 7 where c > 64; the rest empty), points 4-15 m
+    ahead, 5 % behind their camera, 2 % of the edges padded (camera -1), 1 %
+    masked, 30 % stereo; camera drop_cam's edges padded, with weight 1.
+    Returns (cam, poses, points, pt_valid, edges, edge_mask)."""
+    T = se3.exp(torch.from_numpy(rng.normal(0, 0.1, (c, 6)).astype(np.float32)))
     X = np.stack([rng.uniform(-3, 3, q), rng.uniform(-2, 2, q), rng.uniform(4, 15, q)], -1)
     X[: max(q // 20, 1), 2] = -1.5
-    obs = np.stack([rng.uniform(0, 640, e), rng.uniform(0, 480, e),
-                    np.where(rng.random(e) < 0.3, rng.uniform(0, 640, e), -1.0)], 0)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    slots = np.arange(min(c, 16)) if c <= 64 else 7 + 32 * np.arange(16)
+    obs_cam = slots[rng.integers(0, len(slots), (q, o))].astype(np.int32)
+    obs_cam[rng.random((q, o)) < 0.02] = -1
+    mask = rng.random((q, o)) > 0.01
+    if drop_cam is not None:
+        mask |= obs_cam == drop_cam
+        obs_cam[obs_cam == drop_cam] = -1
+    uvr = np.stack([rng.uniform(0, 640, (q, o)), rng.uniform(0, 480, (q, o)),
+                    np.where(rng.random((q, o)) < 0.3, rng.uniform(0, 640, (q, o)), -1.0)], -1)
+    t = lambda a, dt=np.float32: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+    prob = schur_ba.BAProblem(
+        poses=T.to(dev), cam_valid=torch.ones(c, dtype=torch.bool, device=dev),
+        cam_fixed=torch.zeros(c, dtype=torch.bool, device=dev), points=t(X),
+        pt_valid=t(rng.random(q) < 0.97, bool), obs_cam=t(obs_cam, np.int32), obs_uvr=t(uvr),
+        obs_level=t(rng.integers(0, 8, (q, o)), np.int32))
+    edges = schur_ba._edges(prob, t(1.0 / 1.44 ** rng.integers(0, 8, (q, o))))
     cam = camera_mod.Camera.make(517.3, 517.3, 320.0, 240.0, bf=129.3, device=dev)
-    return (cam, rows.contiguous().to(dev), t(np.repeat(X, o, 0).T), t(obs),
-            t(1.0 / 1.44 ** rng.integers(0, 8, e)), t(obs[2] >= 0), t(rng.random(e) > 0.01),
-            robust)
+    return cam, prob.poses, prob.points, prob.pt_valid, edges, t(mask)
 
 
-def _ba_close(got, want):
-    assert torch.equal(torch.isnan(got), torch.isnan(want))
-    g, w = torch.nan_to_num(got), torch.nan_to_num(want)
-    for lo, hi in ((cb.BA_ROW_HCC, cb.BA_ROW_W), (cb.BA_ROW_W, cb.BA_ROW_HPP),
-                   (cb.BA_ROW_HPP, cb.BA_ROW_BC), (cb.BA_ROW_BC, cb.BA_ROW_BP),
-                   (cb.BA_ROW_BP, cb.BA_ROW_ERR)):
-        assert float((g[lo:hi] - w[lo:hi]).abs().max()) <= 1e-5 * float(w[lo:hi].abs().max())
-    for r in (cb.BA_ROW_ERR, cb.BA_ROW_CHI2):
-        assert bool(((g[r] - w[r]).abs() <= 1e-5 * w[r].abs()).all())
-    assert torch.equal(got[cb.BA_ROW_DEPTH], want[cb.BA_ROW_DEPTH])
+def _lin_equal(got, want):
+    """Every field equal bit for bit, NaN where the twin has NaN."""
+    for name, a, b in zip(schur_ba.Lin._fields, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if a.is_floating_point():
+            assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+            a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+        assert torch.equal(a, b), (name, float((a.double() - b.double()).abs().max()))
 
 
-@pytest.mark.parametrize("case", ["robust", "plain", "all_masked", "nan_point", "tiny"])
+@pytest.mark.parametrize("case", ["robust", "plain", "all_masked", "nan_point", "tiny",
+                                  "empty_camera", "c512"])
 def test_ba_edge_kernel_within_tolerance(cuda, case):
+    """K9 as the whole assembly, at a tolerance of zero: one launch gives
+    every `Lin` field bit for bit with its twin (the same per-edge float32
+    operations, the same fixed summation order), and
+    a second launch repeats it. Event size (4096 points x 12, 64 slots);
+    every edge masked (err 0, all sums 0); a NaN point (err NaN, only its
+    cameras' Hcc NaN); one point of one edge; cameras with no edge (zeros);
+    512 slots, as global BA over the default `max_keyframes` hands it, with
+    16 cameras in both of the chunk scan's 256-camera segments."""
     rng = np.random.default_rng(9)
-    q, o = (3, 1) if case == "tiny" else (4096, 12)
-    args = _ba_inputs(rng, q, o, cuda, case != "plain")
+    q, o, c = {"tiny": (1, 1, 2), "c512": (4096, 12, 512)}.get(case, (4096, 12, 64))
+    cam, poses, points, pt_valid, edges, mask = _ba_problem(
+        rng, q, o, c, cuda, 3 if case == "empty_camera" else None)
+    robust = case != "plain"
     if case == "all_masked":
-        args = args[:6] + (torch.zeros_like(args[6]), True)
+        mask = torch.zeros_like(mask)
     if case == "nan_point":
-        args[2][:, 12 * 7:12 * 8] = float("nan")
+        points[7] = float("nan")
+    args = (cam, poses, points, pt_valid, edges, mask, robust)
     before = launch.LAUNCHES["ba_edge"]
-    got, want = cb.ba_edge_terms(*args), cb.ba_edge_terms_plain(*args)
+    got, again = cb.ba_assemble(*args), cb.ba_assemble(*args)
+    want = cb.ba_assemble_plain(*args)
     torch.cuda.synchronize()
-    assert launch.LAUNCHES["ba_edge"] == before + 1 and got.shape == (64, q * o)
-    _ba_close(got, want)
-    err = float(got[cb.BA_ROW_ERR].sum())
+    assert launch.LAUNCHES["ba_edge"] == before + 2
+    _lin_equal(got, want)
+    _lin_equal(got, again)
+    lin = schur_ba.Lin(*got)
     if case == "nan_point":
-        assert np.isnan(err)
+        assert bool(lin.err.isnan())
+        nan_cams = torch.isnan(lin.Hcc).any(dim=(1, 2))
+        assert bool(nan_cams.any()) and not bool(nan_cams.all())
     elif case == "all_masked":
-        assert err == 0.0 and not bool(got[:cb.BA_ROW_ERR].any())
+        assert float(lin.err) == 0.0 and not bool(lin.Hcc.any()) and not bool(lin.Hpp.any())
+    elif case == "empty_camera":
+        assert not bool(lin.Hcc[3].any()) and not bool(lin.bc[3].any())
+        assert not bool(lin.Hcc[16:].any()) and bool(lin.Hcc[2].any())
+    elif case == "c512":
+        used = torch.zeros(c, dtype=torch.bool, device=cuda)
+        used[7::32] = True
+        assert bool(lin.Hcc[used].any(dim=(1, 2)).all()) and not bool(lin.Hcc[~used].any())
+    else:
+        assert bool(torch.isfinite(lin.err)) and (case == "tiny" or float(lin.err) > 0)
+
+
+def test_ba_assemble_on_two_streams(cuda):
+    """Assemblies in flight on two streams at once: each stream has its own
+    arrival counters, and every result equals its twin bit for bit."""
+    rng = np.random.default_rng(11)
+    problems = [_ba_problem(rng, 4096, 12, 64, cuda) for _ in range(2)]
+    streams = [torch.cuda.Stream(cuda) for _ in problems]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(8):
+        for i, (s, args) in enumerate(zip(streams, problems)):
+            with torch.cuda.stream(s):
+                got[i].append(cb.ba_assemble(*args, True))
+    torch.cuda.synchronize()
+    bufs = {cb._counters(cuda, s.cuda_stream, 65).data_ptr() for s in streams}
+    assert len(bufs) == 2
+    for args, runs in zip(problems, got):
+        want = cb.ba_assemble_plain(*args, True)
+        for lin in runs:
+            _lin_equal(lin, want)
 
 
 def test_keyframe_pass_kernel_path_equals_twin_path(cuda, monkeypatch):
@@ -549,13 +630,13 @@ def test_keyframe_pass_kernel_path_equals_twin_path(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert launch.LAUNCHES["epi_match"] == 2 and launch.LAUNCHES["ba_edge"] == 17
     for mod, name, twin in ((ce, "pyramid", ce.pyramid_plain),
-                            (ce, "dense_stage", ce.dense_stage_plain),
+                            (ce, "dense_stage_levels", ce.dense_stage_levels_plain),
                             (ce, "brief", ce.brief_plain),
                             (cm, "masked_best_two", cm.masked_best_two_plain),
                             (cm, "projection_best_two", cm.projection_best_two_plain),
                             (cm, "epi_best_two", cm.epi_best_two_plain),
                             (cp, "pose_lm", cp.pose_lm_plain),
-                            (cb, "ba_edge_terms", cb.ba_edge_terms_plain)):
+                            (cb, "ba_assemble", cb.ba_assemble_plain)):
         monkeypatch.setattr(mod, name, twin)
     launch.reset_launches()
     m_t, s_t = run()
