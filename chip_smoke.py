@@ -10,12 +10,13 @@ Phases (each prints its result; any failure exits non-zero):
                one nvcc per source, all at once; prints ptxas registers and
                spills;
 3. parity    — each kernel against its plain-PyTorch twin on the card:
-               K1-K3 at every pyramid level of a 640x480 frame (K2 in its
-               one launch over the pyramid), K4/K5/K8 and every field of
-               the K9 assembly bit-exact, K6/K7 within tolerance; on the
-               inputs the main path hands them on real frames and keyframe
-               events (K5 also on fusion's), and on synthetic ones with
-               degenerate cases;
+               K1-K3 at every pyramid level of the 12 front-end frames at
+               640x480 (each in its one launch over the pyramid), K4/K5/K8
+               and every field of the K9 assembly bit-exact, K6/K7 within
+               tolerance; on the inputs the main path hands them on real
+               frames and keyframe events (K5 also on fusion's), and on
+               synthetic ones with degenerate cases (K5 also at N = 16,384
+               keypoints, two tiles, ties across the tile border);
 4. main path — PlateWorld 640x480, 1000 features, 8 levels (the reference
                bench's configuration), the bench loop's first 31 poses:
                frame 0 through `make_frame_rgbd` and the RGB-D
@@ -38,12 +39,13 @@ Phases (each prints its result; any failure exits non-zero):
                twin at the main path's shapes, beside its bound (the bytes
                and operations its function needs on this run's inputs) and,
                where one PyTorch call computes the same function, its time
-               (K1: F.interpolate); K2 over a whole frame's levels (its one
-               launch), K3 also, K5 at fusion's union, K6 split by its
-               schedule (1x0, 2x0, 1x10, 4x10).
+               (K1: F.interpolate); K1, K2 and K3 per frame (one launch
+               each over all levels), K5 at fusion's union and at N =
+               16,384, K6 split by its schedule (1x0, 2x0, 1x10, 4x10).
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
+import itertools
 import json
 import os
 import statistics
@@ -147,7 +149,7 @@ SOURCES = {   # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
 WRAPPERS = {  # kernel: (module, wrapper, twin)
     "pyramid": (ce, "pyramid", ce.pyramid_plain),
     "dense_stage": (ce, "dense_stage_levels", ce.dense_stage_levels_plain),
-    "brief": (ce, "brief", ce.brief_plain),
+    "brief": (ce, "brief_levels", ce.brief_levels_plain),
     "best_two": (cm, "masked_best_two", cm.masked_best_two_plain),
     "proj_match": (cm, "projection_best_two", cm.projection_best_two_plain),
     "pose_lm": (cp, "pose_lm", cp.pose_lm_plain),
@@ -156,7 +158,7 @@ WRAPPERS = {  # kernel: (module, wrapper, twin)
     "ba_edge": (cb, "ba_assemble", cb.ba_assemble_plain),
 }
 RECORDED = ("best_two", "proj_match", "pose_lm", "epi_match", "ba_edge")
-HAND_KERNELS = ("resize_level_kernel", "dense_stage_kernel", "brief_kernel", "best_two_kernel",
+HAND_KERNELS = ("pyramid_kernel", "dense_stage_kernel", "brief_kernel", "best_two_kernel",
                 "proj_match_kernel", "pose_lm_kernel", "pose_normal_eqs_kernel",
                 "epi_match_kernel", "ba_assemble_kernel")   # their __global__ names in csrc/
 PHASE = ["track"]           # "event" while run_sequence is inside keyframe_pass
@@ -255,7 +257,10 @@ def _region(h, w):
 
 def kernel_inputs(cfg, img, dev):
     """The extractor and, per level, what the main path hands the dense
-    stage and BRIEF: (level image, blur, ys, xs, dx, dy), built by the twins."""
+    stage and BRIEF: (level image, blur, ys, xs, angles), built by the
+    twins; and K3's arguments for the frame (`brief_levels`: the blurred
+    levels, the levels' ys and xs one after another, the angles' cosine
+    and sine, the pattern, the budgets)."""
     ext = ex.extractor_for(cfg, H, W, dev)
     pyr = ce.pyramid_plain(img, ext.pyramid_taps())
     levels = []
@@ -267,10 +272,11 @@ def kernel_inputs(cfg, img, dev):
             ce.candidates_from_dense(s, hi, *region), budget, *region)
         ys = torch.where(valid, ys, torch.full_like(ys, ex.EDGE_THRESHOLD))
         xs = torch.where(valid, xs, torch.full_like(xs, ex.EDGE_THRESHOLD))
-        ang = orient_brief.ic_angles(pyr[lvl], ys, xs)
-        dx, dy = orient_brief.rotated_offsets(ang, ext.brief_points)
-        levels.append((pyr[lvl], blur, ys, xs, dx, dy))
-    return ext, pyr, levels
+        levels.append((pyr[lvl], blur, ys, xs, orient_brief.ic_angles(pyr[lvl], ys, xs)))
+    ca, sa = orient_brief.angle_cos_sin(torch.cat([lv[4] for lv in levels]))
+    brief = ([lv[1] for lv in levels], torch.cat([lv[2] for lv in levels]),
+             torch.cat([lv[3] for lv in levels]), ca, sa, ext.brief_points, list(ext.budgets))
+    return ext, pyr, levels, brief
 
 
 def _dense_args(cfg, levels, ext):
@@ -293,44 +299,84 @@ def _require_equal(what, a, b):
 
 
 def front_parity(cfg, frames, dev, errs):
-    img = torch.from_numpy(frames[0][0]).to(dev).to(torch.float32)
-    ext, pyr_twin, levels = kernel_inputs(cfg, img, dev)
-    pyr = ce.pyramid(img, ext.pyramid_taps())
-    torch.cuda.synchronize()
-    for lvl, (a, b) in enumerate(zip(pyr, pyr_twin)):
-        errs["pyramid"] = max(errs["pyramid"], _max_abs(a, b))
-        _require_equal(f"pyramid level {lvl}", a, b)
-    log(f"[parity] pyramid: {len(pyr) - 1} levels bit-exact")
-    dense_args = _dense_args(cfg, levels, ext)
-    dense, dense_twin = ce.dense_stage_levels(*dense_args), ce.dense_stage_levels_plain(*dense_args)
-    torch.cuda.synchronize()
-    for lvl, (lv, blur, ys, xs, dx, dy) in enumerate(levels):
-        for name, a, b in zip(("score_nms", "hi", "blur"), dense[lvl], dense_twin[lvl]):
-            errs["dense_stage"] = max(errs["dense_stage"], _max_abs(a, b))
-            _require_equal(f"dense_stage level {lvl} {name}", a, b)
-        got, want = ce.brief(blur, ys, xs, dx, dy), ce.brief_plain(blur, ys, xs, dx, dy)
+    """K1, K2 and K3, each one launch over the levels of a frame, against
+    their twins on every level of the N_FRONT front-end frames, bit for
+    bit, on the inputs the main path hands them."""
+    for i, (gray, _) in enumerate(frames[:N_FRONT]):
+        img = torch.from_numpy(gray).to(dev).to(torch.float32)
+        ext, pyr_twin, levels, brief = kernel_inputs(cfg, img, dev)
+        launch.reset_launches()
+        pyr = ce.pyramid(img, ext.pyramid_taps())
+        dense_args = _dense_args(cfg, levels, ext)
+        dense = ce.dense_stage_levels(*dense_args)
+        desc = ce.brief_levels(*brief)
         torch.cuda.synchronize()
-        errs["brief"] = max(errs["brief"], _max_abs(got, want))
-        _require_equal(f"brief level {lvl}", got, want)
-        log(f"[parity] level {lvl} {lv.shape[0]}x{lv.shape[1]}: dense_stage (one launch "
-            f"over the {len(levels)} levels) bit-exact, brief {ys.shape[0]} keypoints bit-exact")
-    for i, (gray, _) in enumerate(frames[1:N_FRONT], 1):
-        pyr = ce.pyramid_plain(torch.from_numpy(gray).to(dev).to(torch.float32),
-                               ext.pyramid_taps())
-        args = (pyr, *dense_args[1:])
-        dense, dense_twin = ce.dense_stage_levels(*args), ce.dense_stage_levels_plain(*args)
-        torch.cuda.synchronize()
-        for lvl, (got, want) in enumerate(zip(dense, dense_twin)):
+        once = {k: launch.LAUNCHES[k] for k in ("pyramid", "dense_stage", "brief")}
+        if once != dict.fromkeys(once, 1):
+            raise AssertionError(f"frame {i}: front-end kernels launched {once}, once each expected")
+        for lvl, (a, b) in enumerate(zip(pyr, pyr_twin)):
+            errs["pyramid"] = max(errs["pyramid"], _max_abs(a, b))
+            _require_equal(f"pyramid frame {i} level {lvl}", a, b)
+        for lvl, (got, want) in enumerate(zip(dense, ce.dense_stage_levels_plain(*dense_args))):
             for name, a, b in zip(("score_nms", "hi", "blur"), got, want):
                 errs["dense_stage"] = max(errs["dense_stage"], _max_abs(a, b))
                 _require_equal(f"dense_stage frame {i} level {lvl} {name}", a, b)
-    log(f"[parity] dense_stage: frames 1-{N_FRONT - 1} of the front-end checks, every level "
-        f"bit-exact")
+        want = ce.brief_levels_plain(*brief)
+        errs["brief"] = max(errs["brief"], _max_abs(desc, want))
+        for lvl, (k0, k1) in enumerate(zip(*_spans(brief[6]))):
+            _require_equal(f"brief frame {i} level {lvl}", desc[k0:k1], want[k0:k1])
+        if i == 0:
+            log(f"[parity] frame 0: pyramid {len(pyr) - 1} levels {[tuple(p.shape) for p in pyr[1:]]}"
+                f", dense_stage {len(levels)} levels, brief {brief[1].shape[0]} keypoints over "
+                f"{len(levels)} levels, one launch each: bit-exact")
+    log(f"[parity] pyramid, dense_stage, brief: frames 0-{N_FRONT - 1}, every level bit-exact, "
+        f"one launch each per frame")
+
+
+def _spans(counts):
+    """The first and end keypoint of each level of a frame's budgets."""
+    ends = list(itertools.accumulate(counts))
+    return [e - c for e, c in zip(ends, counts)], ends
 
 
 def _random_desc(rng, n, dev):
     return torch.from_numpy(rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
                             .view(np.int32)).to(dev)
+
+
+def _synthetic_proj_tiles(rng, dev, p=8192, n=16384):
+    """K5's arguments at P points x N keypoints (an 8,000-feature setting's
+    max_keypoints: two tiles of `cm.PROJ_TILE` staged keypoints): keypoints
+    across a 640x480 frame on 8 octaves, points near them. For points 0-63
+    a keypoint in tile 1 equal to the point, and one in tile 0 at the same
+    place and octave that is equal too (even points: a tie, which tile 0's
+    lower column wins, the second best 0 in tile 1) or one bit off (odd:
+    the best moves to tile 1 and tile 0's becomes the second best, 1).
+    Returns the arguments and each forced point's (best, index, second)."""
+    kp_xy = np.stack([rng.uniform(0, W, n), rng.uniform(0, H, n)], 1).astype(np.float32)
+    kp_level = rng.integers(0, 8, n).astype(np.int32)
+    kp_ur = np.where(rng.random(n) < 0.5, kp_xy[:, 0] - rng.uniform(1, 30, n), -1).astype(np.float32)
+    kp_desc = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32).view(np.int32)
+    src = rng.integers(0, n, p)
+    uv = (kp_xy[src] + rng.normal(0, 5, (p, 2))).astype(np.float32)
+    radius = rng.uniform(5, 40, p).astype(np.float32)
+    pred = np.clip(kp_level[src] + rng.integers(0, 2, p), 0, 7).astype(np.int32)
+    p_ur = np.where(rng.random(p) < 0.5, uv[:, 0] - rng.uniform(1, 30, p), -1).astype(np.float32)
+    p_desc = kp_desc[src] ^ (rng.integers(0, 2 ** 32, (p, 8), dtype=np.uint32)
+                             & np.uint32(0x01010101)).view(np.int32)
+    p_valid, kp_valid = rng.random(p) < 0.9, rng.random(n) < 0.9
+    expect = {}
+    for row in range(64):
+        first, other = 64 + row, cm.PROJ_TILE + row
+        kp_xy[[first, other]], kp_level[[first, other]] = uv[row], pred[row]
+        kp_ur[[first, other]], kp_valid[[first, other]] = -1.0, True
+        kp_desc[[first, other]] = p_desc[row]
+        kp_desc[first, 0] ^= row % 2
+        radius[row], p_valid[row] = 6.0, True
+        expect[row] = (0, first, 0) if row % 2 == 0 else (0, other, 1)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return tuple(t(a) for a in (uv, radius, pred, p_ur, p_valid, p_desc, kp_xy, kp_level,
+                                kp_ur, kp_valid, kp_desc)), expect
 
 
 def _synthetic_pose_edges(rng, n, stereo, dev):
@@ -385,11 +431,15 @@ def match_pose_parity(recorded, dev, errs):
              kp_ur[src].contiguous(), torch.ones(P, dtype=torch.bool, device=dev),
              (kp_desc[src] ^ (_random_desc(rng, P, dev) & 0x00110011)).contiguous(),
              kp_xy, kp_level, kp_ur, kp_valid, kp_desc)
-    for what, args in (("local map, frame 1", rec), ("synthetic P=8192", synth)):
+    tiles, expect = _synthetic_proj_tiles(rng, dev)
+    for what, args in (("local map, frame 1", rec), ("synthetic P=8192", synth),
+                       ("synthetic N=16384 (two tiles), ties across the tile border", tiles)):
         got, want = cm.projection_best_two(*args), cm.projection_best_two_plain(*args)
         torch.cuda.synchronize()
         for name, a, b in zip(("best", "idx", "second"), got, want):
             _require_equal(f"proj_match {what} {name}", a, b)
+        if args is tiles and any(tuple(int(t[r]) for t in got) != e for r, e in expect.items()):
+            raise AssertionError(f"proj_match {what}: the forced rows are not {expect}")
         log(f"[parity] proj_match {what} ({args[0].shape[0]} points x "
             f"{args[6].shape[0]} keypoints, {int((got[0] < cm.BIG).sum())} with a "
             f"candidate): bit-exact")
@@ -740,9 +790,7 @@ def main_path_phase(cfg, poses, frames, dev):
     out = [make_frame_rgbd(g, d, cfg) for g, d in uploads[:N_FRONT]]
     torch.cuda.synchronize()
     front_launches = dict(launch.LAUNCHES)
-    n_levels = cfg.n_levels
-    per_frame = {"pyramid": n_levels - 1, "dense_stage": 1,
-                 "brief": sum(1 for b in cfg.features_per_level() if b > 0)}
+    per_frame = {"pyramid": 1, "dense_stage": 1, "brief": int(sum(cfg.features_per_level()) > 0)}
     expected = {**dict.fromkeys(launch.LAUNCHES, 0),
                 **{k: v * N_FRONT for k, v in per_frame.items()}}
     log(f"[main] front end, {N_FRONT} frames: launches {front_launches}")
@@ -1039,14 +1087,29 @@ def _bound(n_bytes, ops):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def _brief_bytes(blur, ys, xs, dx, dy):
-    """The bytes K3's function must move: the distinct pixels its samples
-    read (not the whole level image), the keypoints and offsets in, the
-    descriptor words out."""
-    h, w = blur.shape
-    gy = torch.clamp(ys[:, None].long() + dy.long(), 0, h - 1)
-    gx = torch.clamp(xs[:, None].long() + dx.long(), 0, w - 1)
-    return 4 * torch.unique(gy * w + gx).numel() + _nbytes(ys, xs, dx, dy) + 32 * ys.shape[0]
+def _sampled_pixels(brief):
+    """The distinct pixels K3's samples read over a frame's levels."""
+    blurs, ys, xs, ca, sa, points, counts = brief
+    n = 0
+    for blur, k0, k1 in zip(blurs, *_spans(counts)):
+        h, w = blur.shape
+        dx, dy = ce.rotate_pattern(ca[k0:k1], sa[k0:k1], points)
+        gy = torch.clamp(ys[k0:k1, None].long() + dy.long(), 0, h - 1)
+        gx = torch.clamp(xs[k0:k1, None].long() + dx.long(), 0, w - 1)
+        n += torch.unique(gy * w + gx).numel()
+    return n
+
+
+def _brief_bytes(brief, tables=False):
+    """The bytes K3's function must move over a frame: the distinct pixels
+    its samples read (not the whole levels), per keypoint its position,
+    cosine and sine in (16) and its words out (32), the pattern once; with
+    `tables`, the parent's function instead, which read (N, 512) offset
+    tables dx and dy (4 KB a keypoint) in place of the cosine, sine and
+    pattern."""
+    n = brief[1].shape[0]
+    ins = 8 * n + (2 * 4 * 512 * n if tables else 8 * n + _nbytes(brief[5]))
+    return 4 * _sampled_pixels(brief) + ins + 32 * n
 
 
 def _proj_match_bytes(args, cand):
@@ -1146,8 +1209,7 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
         f"kernel, {p_ms:.4f} ms by the profiler ({p_n:.1f} device activities per call)")
 
     img = torch.from_numpy(frames[0][0]).to(dev).to(torch.float32)
-    ext, pyr, levels = kernel_inputs(cfg, img, dev)
-    lv0, blur0, ys, xs, dx, dy = levels[0]
+    ext, pyr, levels, brief = kernel_inputs(cfg, img, dev)
     taps = ext.pyramid_taps()
     dense_args = _dense_args(cfg, levels, ext)
     k4 = recorded["best_two"][0]
@@ -1161,7 +1223,9 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
     # hold (one mask test per row and per column), the Hamming distance only
     # for the candidates (the data-dependent counts from the twins' masks);
     # K3, K5, K8 and K9 count the bytes of `_*_bytes`, the rest every input
-    # once and every output once
+    # once and every output once (K1: the image and its packed taps in, the
+    # levels 1.. out; K3: 512 x (4 products, 2 sums, 2 roundings) for the
+    # rotation and 1,024 for the samples and compares per keypoint)
     n4 = int(k4[2].sum())
     cand5 = cm.projection_candidates(*k5[:5], *k5[6:10])
     n5 = int(cand5.sum())
@@ -1174,17 +1238,17 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
     resize_ops = sum(3 * h * pw + 3 * h * w for (ph, pw), (h, w) in
                      zip([p.shape for p in pyr[:-1]], [p.shape for p in pyr[1:]]))
     calls = {   # kernel: (shapes, kernel call, twin call, inputs or bytes, operations)
-        "pyramid": (f"{H}x{W} -> {cfg.n_levels - 1} levels",
+        "pyramid": (f"{H}x{W} -> {cfg.n_levels - 1} levels, call (one launch)",
                     lambda: ce.pyramid(img, taps), lambda: ce.pyramid_plain(img, taps),
-                    (img, taps), resize_ops),
+                    _nbytes(img, taps.itaps, taps.ftaps, pyr[1:]), resize_ops),
         "dense_stage": (f"{H}x{W} pyramid, {len(levels)} levels, frame (one launch)",
                         lambda: ce.dense_stage_levels(*dense_args),
                         lambda: ce.dense_stage_levels_plain(*dense_args),
                         (dense_args[0], ext.gauss), 124 * sum(lv.numel() for lv in pyr)),
-        "brief": (f"{ys.shape[0]} keypoints on {H}x{W}",
-                  lambda: ce.brief(blur0, ys, xs, dx, dy),
-                  lambda: ce.brief_plain(blur0, ys, xs, dx, dy),
-                  _brief_bytes(blur0, ys, xs, dx, dy), 1024 * ys.shape[0]),
+        "brief": (f"{brief[1].shape[0]} keypoints over {len(levels)} levels of {H}x{W}, frame "
+                  f"(one launch)",
+                  lambda: ce.brief_levels(*brief), lambda: ce.brief_levels_plain(*brief),
+                  _brief_bytes(brief), (8 * 512 + 1024) * brief[1].shape[0]),
         "best_two": (f"{k4[0].shape[0]}x{k4[1].shape[0]}, motion-model mask of frame 1",
                      lambda: cm.masked_best_two(*k4), lambda: cm.masked_best_two_plain(*k4),
                      k4, k4[2].numel() + 24 * n4),
@@ -1224,7 +1288,7 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
         n_bytes = ins if isinstance(ins, int) else _nbytes(ins) + _nbytes(kernel())
         bound_ms, bound_by = _bound(n_bytes, ops)
         per_call[name] = dict(ms=ms, plain_ms=plain_ms, device_ms=dev_k, bound_ms=bound_ms,
-                              bound_by=bound_by, library_ms=None)
+                              bound_by=bound_by, library_ms=None, launches_per_call=launched)
         lib = ""
         if name in libraries:
             lib_ms, lib_dev = _event_ms(libraries[name], reps), _queued_ms(libraries[name])
@@ -1249,8 +1313,31 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
         f"{fusion[6].shape[0]} keypoints): kernel {_event_ms(lambda: cm.projection_best_two(*fusion)):.4f}"
         f" ms, twin {_event_ms(lambda: cm.projection_best_two_plain(*fusion), 10):.4f} ms per call; "
         f"device time kernel {union_ms:.4f} ms (queued)")
+    tiles = _synthetic_proj_tiles(np.random.default_rng(2), dev)[0]
+    cand_t = cm.projection_candidates(*tiles[:5], *tiles[6:10])
+    t_ms, t_dev = _event_ms(lambda: cm.projection_best_two(*tiles)), \
+        _queued_ms(lambda: cm.projection_best_two(*tiles))
+    t_bound, t_by = _bound(_proj_match_bytes(tiles, cand_t),
+                           tiles[4].numel() + tiles[9].numel()
+                           + 12 * int(tiles[4].sum()) * int(tiles[9].sum()) + 24 * int(cand_t.sum()))
+    # the same points against the set's first tile alone: what the second tile adds
+    one = tiles[:6] + tuple(t[:cm.PROJ_TILE].contiguous() for t in tiles[6:])
+    one_dev = _queued_ms(lambda: cm.projection_best_two(*one))
+    per_call["proj_match"].update(n16384_ms=t_ms, n16384_device_ms=t_dev,
+                                  n16384_bound_ms=t_bound, n8192_same_points_device_ms=one_dev)
+    log(f"[timing] {card}: proj_match at N=16384 keypoints (two tiles) x P=8192 points, "
+        f"synthetic: per call {t_ms:.4f} ms, device time {t_dev:.4f} ms (queued), bound "
+        f"{t_bound:.4f} ms by {t_by}; the set's first 8192 keypoints alone (one tile): device "
+        f"time {one_dev:.4f} ms")
+    if t_dev < t_bound:
+        raise AssertionError(f"proj_match at N=16384: device time {t_dev:.4f} ms below its "
+                             f"bound {t_bound:.4f} ms")
+    table_bound = _bound(_brief_bytes(brief, tables=True), 1024 * brief[1].shape[0])[0]
+    per_call["brief"]["table_bound_ms"] = table_bound
+    log(f"[timing] {card}: brief's bound with the parent's (N, 512) offset tables in place of "
+        f"the rotation's inputs: {table_bound:.4f} ms (this function: "
+        f"{per_call['brief']['bound_ms']:.4f} ms)")
     per_call["pose_lm"]["split"] = k6_split(k6, card)
-    brief_frame(levels, per_call, card)
     return per_call
 
 
@@ -1282,21 +1369,6 @@ def _interpolate_pyramid(img, sizes):
             out[-1][None, None], size=(h, w), mode="bilinear", align_corners=False,
             antialias=False)[0, 0])
     return out[1:]
-
-
-def brief_frame(levels, per_call, card):
-    """K3 over every level of frame 0, as one frame runs it: device time
-    (queued clock) and bound per frame, beside the level-0 call. (K2's row
-    is per frame already: one launch covers the levels.)"""
-    bound = sum(_bound(_brief_bytes(*lvl[1:]), 1024 * lvl[2].shape[0])[0] for lvl in levels)
-    ms = _queued_ms(lambda: [ce.brief(*lvl[1:]) for lvl in levels])
-    per_call["brief"].update(frame_device_ms=ms, frame_bound_ms=bound,
-                             frame_launches=len(levels))
-    log(f"[timing] {card}: brief per frame ({len(levels)} levels): device time {ms:.4f} ms "
-        f"(queued), bound {bound:.4f} ms")
-    if ms < bound:
-        raise AssertionError(f"brief: device time per frame {ms:.4f} ms below its bound "
-                             f"{bound:.4f} ms")
 
 
 def k7_path(recorded):

@@ -50,7 +50,7 @@
 //   thread t summing points t, t + NT, ... in order from 0, then the same
 //   halving tree. The arrival order does not change the result; each last
 //   block sets its counter back to 0 for the next launch on the stream
-//   (`cuda_ba._counters` keeps a buffer per stream). (One counter for
+//   (`launch.counters` keeps a buffer per stream). (One counter for
 //   the whole grid, with the last block combining every camera, was ~5 us
 //   slower on the H100: serial work in one block, PERF.md.)
 //

@@ -36,19 +36,21 @@ LIB_NAME = "liborb_kernels.so"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of each kernel's launcher; every one returns cudaGetLastError()
 SIGNATURES = {
-    # src, src_h, src_w, dst, dst_h, dst_w, iy, wy, ix, wx, stream
-    "orb_resize_level": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P),
+    # n levels, dims (2n + 2 host ints), img, out, itaps, ftaps, counters,
+    # stream
+    "orb_pyramid": (_I, _P, _P, _P, _P, _P, _P, _P),
     # n levels, ptrs (4n host pointers), dims (6n host ints), taps, ini_th,
     # min_th, stream
     "orb_dense_stage_levels": (_I, _P, _P, _P, _F, _F, _P),
-    # blur, h, w, ys, xs, dx, dy, n, out, stream
-    "orb_brief": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P),
+    # n levels, blurs (n host pointers), dims (3n host ints), ys, xs, ca,
+    # sa, points, out, stream
+    "orb_brief_levels": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     # desc_a, n, desc_b, m, mask, best, idx, second, stream
     "orb_best_two": (_P, _I, _P, _I, _P, _P, _P, _P, _P),
     # uv, radius, pred_level, p_ur, p_valid, p_desc, p, kp_xy, kp_level,
-    # kp_ur, kp_valid, kp_desc, n, best, idx, second, stream
+    # kp_ur, kp_valid, kp_desc, n, best, idx, second, carry, stream
     "orb_proj_match": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
-                       _P, _P, _P, _P),
+                       _P, _P, _P, _P, _P),
     # Tcw, fx, fy, cx, cy, bf, d2_mono, d2_stereo, xw, obs, inv_s2, stereo,
     # valid, e, n_rounds, n_iters, pose (4x4), inliers, n_inl, chi2, stream
     "orb_pose_lm": (_P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,

@@ -23,7 +23,7 @@ import torch
 
 from ..solvers import reproj
 from ..utils.config import device_table
-from .launch import check, launch, on_cpu, ptr
+from .launch import check, counters as launch_counters, launch, on_cpu, ptr
 
 BA_ROWS = 64
 BA_ROW_HCC = 0        # 21 rows: upper triangle of the 6x6 pose block
@@ -200,18 +200,6 @@ def ba_assemble_plain(cam, poses, points, pt_valid, edges, edge_mask, robust: bo
             out[BA_ROW_DEPTH].reshape(Q, O) > 0)
 
 
-@functools.lru_cache(maxsize=64)
-def _counters(device, stream: int, n: int):
-    """The kernel's n arrival counters (uint32) for launches on `stream` of
-    `device`, 0 between launches: the last block to arrive on each resets
-    it. Launches on one stream run one after another, so they share a
-    buffer; launches on two streams may overlap, so each stream has its
-    own. The caller makes it while `stream` is current, so the caching
-    allocator never hands an evicted buffer to another stream while a
-    launch may still use it."""
-    return torch.zeros((n,), dtype=torch.int32, device=device)
-
-
 def ba_assemble(cam, poses, points, pt_valid, edges, edge_mask, robust: bool):
     """Kernel wrapper of `ba_assemble_plain` (K9, `csrc/ba_edge.cu`): one
     launch, deterministic."""
@@ -244,8 +232,7 @@ def ba_assemble(cam, poses, points, pt_valid, edges, edge_mask, robust: bool):
     depth_ok = torch.empty((Q, O), dtype=torch.bool, device=dev)
     partial = torch.empty((-(-E // BA_CHUNK) + C, 27), **f32)
     err_pt = torch.empty((Q,), **f32)
-    with torch.cuda.device(dev):
-        counters = _counters(dev, torch.cuda.current_stream(dev).cuda_stream, C + 1)
+    counters = launch_counters("ba_edge", dev, C + 1)
     launch("ba_edge", "orb_ba_assemble", dev, ptr(cam.fx), ptr(cam.fy), ptr(cam.cx),
            ptr(cam.cy), ptr(cam.bf), reproj.CHI2_MONO, reproj.CHI2_STEREO, int(bool(robust)),
            ptr(poses), ptr(points), ptr(pt_valid), ptr(edges.cam), ptr(edges.obs),

@@ -6,7 +6,9 @@ their wrappers (port of `orb_slam2_tpu/ops/pallas_extract.py`).
 | `pyramid`     | `pyramid.cu`      | `pallas_extract.pyramid_pallas`                | `pyramid_plain`     |
 | `dense_stage_levels` | `dense_stage.cu` | `pallas_extract.dense_stage_pallas` | `dense_stage_levels_plain` |
 | `dense_stage` (one level) | `dense_stage.cu` | the same          | `dense_stage_plain` |
-| `brief`       | `brief.cu`        | `pallas_extract.brief_sample_pallas` + packing | `brief_plain`       |
+| `brief_levels` | `brief.cu`       | `pallas_extract.brief_sample_pallas` + rotation and packing | `brief_levels_plain` |
+
+Each kernel is one launch per frame over every level.
 
 Each wrapper dispatches on the device of its input (`launch.py`): a CPU
 tensor runs the twin, a CUDA tensor launches the kernel on the current
@@ -20,52 +22,81 @@ from __future__ import annotations
 
 import ctypes
 import itertools
+from typing import NamedTuple
 
 import torch
 
 from . import fast as fast_ops
 from . import image as image_ops
-from .launch import check as _check, launch as _launch, on_cpu as _on_cpu, ptr as _p
+from .launch import check as _check, counters as _counters, launch as _launch
+from .launch import on_cpu as _on_cpu, ptr as _p
 
 NEG = float("-inf")
 BRIEF_PAIRS = 256
 _DENSE_PAD = 5     # the dense kernel's reflect-101 halo (blur 4, FAST 3, NMS +1)
 _DENSE_MAX_LEVELS = 16
+_MAX_LEVELS = 16   # the pyramid's output levels and BRIEF's levels per launch
 
 
 # ---------------------------------------------------------------------------
-# K1: pyramid (cascaded bilinear resize, one launch per level)
+# K1: pyramid (cascaded bilinear resize, one launch for all levels)
 # ---------------------------------------------------------------------------
+
+class PyramidTaps(NamedTuple):
+    """The resize taps of a pyramid, per level and packed for the kernel:
+    built once per image size (`pack_pyramid_taps`), not per call."""
+
+    levels: tuple       # per level 1..: (iy (2, h) int32, wy (2, h) f32, ix (2, w), wx (2, w))
+    itaps: torch.Tensor  # per level 1..: its iy then its ix, flattened, int32
+    ftaps: torch.Tensor  # per level 1..: its wy then its wx, flattened, float32
+    sizes: tuple        # (h, w) of levels 0..
+    dims: object        # the same sizes as a ctypes int array, for the launcher
+
+
+def pack_pyramid_taps(levels, size0):
+    """`PyramidTaps` from the per-level `(iy, wy, ix, wx)` list of an image of
+    size0 = (h, w) (`extractor.pyramid_taps`), on the taps' device."""
+    levels = tuple(tuple(t) for t in levels)
+    sizes = (tuple(int(v) for v in size0),) + tuple(
+        (iy.shape[1], ix.shape[1]) for iy, _, ix, _ in levels)
+    itaps = torch.cat([t.reshape(-1) for iy, _, ix, _ in levels for t in (iy, ix)])
+    ftaps = torch.cat([t.reshape(-1) for _, wy, _, wx in levels for t in (wy, wx)])
+    dims = (ctypes.c_int * (2 * len(sizes)))(*[v for hw in sizes for v in hw])
+    return PyramidTaps(levels, itaps, ftaps, sizes, dims)
+
 
 def pyramid_plain(img, taps):
     """(H, W) float32 -> list of n_levels images (level 0 = img itself),
     each level resized from the one before with its `(iy, wy, ix, wx)` taps
-    (`image._resize_taps`)."""
+    (`image._resize_taps`). taps: that per-level list, or `PyramidTaps`."""
     pyr = [img]
-    for iy, wy, ix, wx in taps:
+    for iy, wy, ix, wx in (taps.levels if isinstance(taps, PyramidTaps) else taps):
         pyr.append(image_ops.resize_taps(pyr[-1], iy, wy, ix, wx))
     return pyr
 
 
 def pyramid(img, taps):
-    """Kernel wrapper of `pyramid_plain`."""
+    """Kernel wrapper of `pyramid_plain`: one launch for every level
+    (`csrc/pyramid.cu`). The levels are views into one allocation of
+    sum(h*w) float32. taps: a `PyramidTaps` (a per-level list is packed
+    here, per call)."""
     if _on_cpu(img):
         return pyramid_plain(img, taps)
-    pyr = [img]
-    for iy, wy, ix, wx in taps:
-        src = pyr[-1]
-        sh, sw = src.shape
-        h, w = iy.shape[1], ix.shape[1]
-        _check(src, torch.float32, (sh, sw), img.device, "pyramid src")
-        _check(iy, torch.int32, (2, h), img.device, "pyramid iy")
-        _check(wy, torch.float32, (2, h), img.device, "pyramid wy")
-        _check(ix, torch.int32, (2, w), img.device, "pyramid ix")
-        _check(wx, torch.float32, (2, w), img.device, "pyramid wx")
-        out = torch.empty((h, w), dtype=torch.float32, device=img.device)
-        _launch("pyramid", "orb_resize_level", img.device, _p(src), sh, sw,
-                _p(out), h, w, _p(iy), _p(wy), _p(ix), _p(wx))
-        pyr.append(out)
-    return pyr
+    if not isinstance(taps, PyramidTaps):
+        taps = pack_pyramid_taps(taps, img.shape)
+    dev = img.device
+    n = len(taps.sizes) - 1
+    if not 1 <= n <= _MAX_LEVELS:
+        raise ValueError(f"pyramid: {n} levels to build (1 to {_MAX_LEVELS})")
+    n_px = [h * w for h, w in taps.sizes[1:]]
+    _check(img, torch.float32, taps.sizes[0], dev, "pyramid img")
+    _check(taps.itaps, torch.int32, (2 * sum(map(sum, taps.sizes[1:])),), dev, "pyramid itaps")
+    _check(taps.ftaps, torch.float32, taps.itaps.shape, dev, "pyramid ftaps")
+    counters = _counters("pyramid", dev, sum(h for h, _ in taps.sizes[1:]) + 2)  # a flag a row
+    out = torch.empty((sum(n_px),), dtype=torch.float32, device=dev)
+    _launch("pyramid", "orb_pyramid", dev, n, taps.dims, _p(img), _p(out), _p(taps.itaps),
+            _p(taps.ftaps), _p(counters))
+    return [img] + [lv.view(hw) for lv, hw in zip(out.split(n_px), taps.sizes[1:])]
 
 
 # ---------------------------------------------------------------------------
@@ -154,11 +185,23 @@ def candidates_from_dense(score_nms, hi, min_bx: int, max_bx: int,
 
 
 # ---------------------------------------------------------------------------
-# K3: steered BRIEF (sample 512 rotated points, compare pairs, pack bits)
+# K3: steered BRIEF (rotate the pattern, sample, compare pairs, pack bits)
 # ---------------------------------------------------------------------------
 
+def rotate_pattern(ca, sa, points):
+    """(N, 512) int32 (dx, dy): the pattern points (2, 512) rotated by the
+    angles whose cosine and sine are ca, sa (N,), rounded half-to-even
+    (cvRound in `computeOrbDescriptor`, `src/ORBextractor.cc:170`): every
+    product, then the difference or sum, each rounded to float32."""
+    px, py = points[0][None, :], points[1][None, :]
+    ca, sa = ca[:, None], sa[:, None]
+    dx = torch.round(px * ca - py * sa).to(torch.int32)
+    dy = torch.round(px * sa + py * ca).to(torch.int32)
+    return dx, dy
+
+
 def brief_plain(blur, ys, xs, dx, dy):
-    """(N, 8) int32 descriptor words: bit b of word w is
+    """One level: (N, 8) int32 descriptor words: bit b of word w is
     blur[ys+dy[p], xs+dx[p]] < blur[ys+dy[p+256], xs+dx[p+256]] with
     p = w*32+b, coordinates clamped into the image. ys/xs (N,) int32;
     dx/dy (N, 512) int32. The words are the int32 view of the reference's
@@ -173,20 +216,47 @@ def brief_plain(blur, ys, xs, dx, dy):
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
 
 
-def brief(blur, ys, xs, dx, dy):
-    """Kernel wrapper of `brief_plain`."""
-    if _on_cpu(blur):
-        return brief_plain(blur, ys, xs, dx, dy)
-    H, W = blur.shape
-    n = ys.shape[0]
-    _check(blur, torch.float32, (H, W), blur.device, "brief blur")
-    for t, shape, name in ((ys, (n,), "ys"), (xs, (n,), "xs"),
-                           (dx, (n, 2 * BRIEF_PAIRS), "dx"),
-                           (dy, (n, 2 * BRIEF_PAIRS), "dy")):
-        _check(t, torch.int32, shape, blur.device, f"brief {name}")
-    out = torch.empty((n, 8), dtype=torch.int32, device=blur.device)
+def brief_levels_plain(blurs, ys, xs, ca, sa, points, counts):
+    """Steered BRIEF over the levels of a frame: blurs the (h, w) blurred
+    levels; ys, xs (N,) int32 and ca, sa (N,) float32 (the cosine and sine
+    of each keypoint's angle) for counts[l] keypoints of each level l, one
+    level after another; points the (2, 512) pattern. Returns (N, 8) int32:
+    `rotate_pattern` and `brief_plain` on each level."""
+    out, k = [], 0
+    for blur, c in zip(blurs, counts):
+        dx, dy = rotate_pattern(ca[k:k + c], sa[k:k + c], points)
+        out.append(brief_plain(blur, ys[k:k + c], xs[k:k + c], dx, dy))
+        k += c
+    return torch.cat(out) if out else torch.zeros((0, 8), dtype=torch.int32, device=ys.device)
+
+
+def brief_levels(blurs, ys, xs, ca, sa, points, counts):
+    """Kernel wrapper of `brief_levels_plain`: one launch over the
+    keypoints of every level (`csrc/brief.cu`), which rotates the pattern
+    itself; no offset table is made."""
+    if _on_cpu(ys):
+        return brief_levels_plain(blurs, ys, xs, ca, sa, points, counts)
+    dev, n = ys.device, ys.shape[0]
+    counts = [int(c) for c in counts]
+    if len(blurs) != len(counts) or not 1 <= len(blurs) <= _MAX_LEVELS \
+            or min(counts) < 0 or sum(counts) != n:
+        raise ValueError(f"brief_levels: {len(blurs)} levels, keypoint counts {counts} for "
+                         f"{n} keypoints (1 to {_MAX_LEVELS} levels)")
+    for t, dtype, shape, name in ((ys, torch.int32, (n,), "ys"), (xs, torch.int32, (n,), "xs"),
+                                  (ca, torch.float32, (n,), "ca"),
+                                  (sa, torch.float32, (n,), "sa"),
+                                  (points, torch.float32, (2, 2 * BRIEF_PAIRS), "points")):
+        _check(t, dtype, shape, dev, f"brief_levels {name}")
+    for lvl, blur in enumerate(blurs):
+        if blur.dim() != 2:
+            raise ValueError(f"brief_levels: level {lvl} of shape {tuple(blur.shape)}")
+        _check(blur, torch.float32, blur.shape, dev, f"brief_levels blur {lvl}")
+    out = torch.empty((n, 8), dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    _launch("brief", "orb_brief", blur.device, _p(blur), H, W, _p(ys), _p(xs), _p(dx),
-            _p(dy), n, _p(out))
+    ptrs = (ctypes.c_uint64 * len(blurs))(*[b.data_ptr() for b in blurs])
+    dims = (ctypes.c_int * (3 * len(blurs)))(*[
+        v for b, c in zip(blurs, counts) for v in (b.shape[0], b.shape[1], c)])
+    _launch("brief", "orb_brief_levels", dev, len(blurs), ptrs, dims, _p(ys), _p(xs), _p(ca),
+            _p(sa), _p(points), _p(out))
     return out

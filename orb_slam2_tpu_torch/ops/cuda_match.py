@@ -21,7 +21,7 @@ import torch
 from .launch import check, launch, on_cpu, ptr
 
 BIG = 512    # > the largest Hamming distance (256): a masked entry
-PROJ_MAX_TARGETS = 8192   # K5's keypoints: 17 B staged + 2 B sorted each, in shared memory
+PROJ_TILE = 8192   # K5's keypoints per tile: 17 B staged + 2 B sorted each, in shared memory
 
 
 def popcount32(x):
@@ -194,16 +194,17 @@ def projection_best_two(uv, radius, pred_level, p_ur, p_valid, p_desc,
                         kp_xy, kp_level, kp_ur, kp_valid, kp_desc):
     """Kernel wrapper of `projection_best_two_plain`: one launch of
     persistent CTAs, each staging the keypoints in shared memory and
-    bucketing them by (octave, cell); at most PROJ_MAX_TARGETS keypoints."""
+    bucketing them by (octave, cell), in tiles of PROJ_TILE keypoints; any
+    number of keypoints whose key dist * N + col fits in int32."""
     if on_cpu(uv):
         return projection_best_two_plain(uv, radius, pred_level, p_ur, p_valid,
                                          p_desc, kp_xy, kp_level, kp_ur, kp_valid,
                                          kp_desc)
     p, n = uv.shape[0], kp_xy.shape[0]
     dev = uv.device
-    if not 1 <= n <= PROJ_MAX_TARGETS:
-        raise ValueError(f"projection_best_two: {n} targets; the kernel stages and "
-                         f"sorts them in shared memory, 1 <= N <= {PROJ_MAX_TARGETS}")
+    if n < 1 or (BIG + 1) * n >= 2 ** 31:
+        raise ValueError(f"projection_best_two: {n} targets; the int32 key "
+                         f"dist * N + col needs 1 <= N < {2 ** 31 // (BIG + 1)}")
     for t, dtype, shape, name, align in (
             (uv, torch.float32, (p, 2), "uv", 8),
             (radius, torch.float32, (p,), "radius", 4),
@@ -219,9 +220,11 @@ def projection_best_two(uv, radius, pred_level, p_ur, p_valid, p_desc,
         check(t, dtype, shape, dev, f"projection_best_two {name}", align)
     best, idx, second = (torch.empty((p,), dtype=torch.int32, device=dev)
                          for _ in range(3))
+    # each row's (key, second distance) per octave, carried between tiles
+    carry = torch.empty((p, 4), dtype=torch.int32, device=dev) if n > PROJ_TILE else None
     if p:
         launch("proj_match", "orb_proj_match", dev, ptr(uv), ptr(radius),
                ptr(pred_level), ptr(p_ur), ptr(p_valid), ptr(p_desc), p, ptr(kp_xy),
                ptr(kp_level), ptr(kp_ur), ptr(kp_valid), ptr(kp_desc), n,
-               ptr(best), ptr(idx), ptr(second))
+               ptr(best), ptr(idx), ptr(second), None if carry is None else ptr(carry))
     return best, idx, second

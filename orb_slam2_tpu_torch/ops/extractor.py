@@ -5,9 +5,10 @@ pyramid -> dense FAST score maps with dual-threshold cell fallback ->
 uniform-grid budget selection -> intensity-centroid orientation -> 9x9
 sigma=2 blur -> steered BRIEF. The output is a fixed-capacity `Keypoints`
 record: every dynamic count of the reference becomes a validity mask, and
-nothing waits on the device. Per frame the hot path launches the pyramid
-(`cuda_extract.pyramid`, a launch per level), the dense stage once over all
-levels (`cuda_extract.dense_stage_levels`) and BRIEF per level.
+nothing waits on the device. Per frame the hot path launches each of its
+kernels once over all levels: the pyramid (`cuda_extract.pyramid`), the
+dense stage (`cuda_extract.dense_stage_levels`) and steered BRIEF
+(`cuda_extract.brief_levels`, after every level's selection and angles).
 """
 from __future__ import annotations
 
@@ -67,7 +68,8 @@ def pyramid_taps(sizes, device="cuda"):
 
 def build_pyramid(img, cfg: SlamConfig, taps=None):
     """(H, W) float32 -> list of per-level images (cascaded bilinear
-    resize, one kernel launch per level on the card)."""
+    resize, one kernel launch on the card). taps: `pyramid_taps`'s list or
+    a `cuda_extract.PyramidTaps` (built here when None)."""
     if taps is None:
         sizes = pyramid_sizes(img.shape[0], img.shape[1], cfg.n_levels,
                               cfg.scale_factor)
@@ -82,14 +84,15 @@ def level_region(h: int, w: int):
     return min_b, w - EDGE_THRESHOLD + 3, min_b, h - EDGE_THRESHOLD + 3
 
 
-def extract_level(img, dense, budget: int, per_cell: int = 1, ic_weights=None,
-                  points=None):
+def detect_level(img, dense, budget: int, per_cell: int = 1, ic_weights=None):
     """One pyramid level and its dense stage's (score_nms, hi, blur) ->
-    (ys, xs, resp, valid, angle, desc), all (budget, ...). ic_weights /
-    points are the constant tables of `ORBExtractor` on img's device (built
+    (ys, xs, resp, valid, angle, ys_safe, xs_safe), all (budget,): the
+    selected keypoints, their orientation, and their coordinates with the
+    padded slots moved to a safe interior pixel (what BRIEF samples around).
+    ic_weights: the constant table of `ORBExtractor` on img's device (built
     per call when None)."""
     min_b, max_bx, _, max_by = level_region(*img.shape)
-    score_nms, hi, blurred = dense
+    score_nms, hi, _ = dense
     cand_score = cuda_extract.candidates_from_dense(
         score_nms, hi, min_b, max_bx, min_b, max_by)
     ys, xs, resp, valid = select_ops.select_uniform(
@@ -100,9 +103,7 @@ def extract_level(img, dense, budget: int, per_cell: int = 1, ic_weights=None,
     xs_safe = torch.where(valid, xs, torch.full_like(xs, EDGE_THRESHOLD))
 
     angle = orient_brief.ic_angles(img, ys_safe, xs_safe, weights=ic_weights)
-    desc = orient_brief.steered_brief(blurred, ys_safe, xs_safe, angle,
-                                      points=points)
-    return ys, xs, resp, valid, angle, desc
+    return ys, xs, resp, valid, angle, ys_safe, xs_safe
 
 
 class ORBExtractor(nn.Module):
@@ -125,13 +126,26 @@ class ORBExtractor(nn.Module):
         self.register_buffer("brief_points", torch.as_tensor(orient_brief.brief_points()))
         self.register_buffer("ic_weights", torch.as_tensor(orient_brief.ic_weights()))
         self.register_buffer("gauss", torch.as_tensor(image_ops._gaussian_kernel_1d(9, 2.0)))
-        for lvl, taps in enumerate(pyramid_taps(sizes, "cpu"), start=1):
-            for name, t in zip(("iy", "wy", "ix", "wx"), taps):
+        taps = cuda_extract.pack_pyramid_taps(pyramid_taps(sizes, "cpu"), sizes[0])
+        for lvl, level in enumerate(taps.levels, start=1):
+            for name, t in zip(("iy", "wy", "ix", "wx"), level):
                 self.register_buffer(f"resize{lvl}_{name}", t)
+        self.register_buffer("resize_itaps", taps.itaps)
+        self.register_buffer("resize_ftaps", taps.ftaps)
+        self._sizes, self._dims, self._taps = taps.sizes, taps.dims, None
 
-    def pyramid_taps(self):
-        return [tuple(getattr(self, f"resize{lvl}_{n}") for n in ("iy", "wy", "ix", "wx"))
-                for lvl in range(1, self.cfg.n_levels)]
+    def _apply(self, fn, *args, **kwargs):
+        self._taps = None                 # the buffers move: pack them anew
+        return super()._apply(fn, *args, **kwargs)
+
+    def pyramid_taps(self) -> cuda_extract.PyramidTaps:
+        """The resize taps on the module's device, per level and packed."""
+        if self._taps is None:
+            levels = tuple(tuple(getattr(self, f"resize{lvl}_{n}") for n in ("iy", "wy", "ix", "wx"))
+                           for lvl in range(1, self.cfg.n_levels))
+            self._taps = cuda_extract.PyramidTaps(levels, self.resize_itaps, self.resize_ftaps,
+                                                  self._sizes, self._dims)
+        return self._taps
 
     def forward(self, img) -> Keypoints:
         """img: (H, W) float32 grayscale in [0, 255]."""
@@ -144,27 +158,35 @@ class ORBExtractor(nn.Module):
         dense = cuda_extract.dense_stage_levels(
             pyr, cfg.ini_th_fast, cfg.min_th_fast,
             [level_region(*lv.shape) for lv in pyr], taps=self.gauss)
-        xy_all, lvl_all, ang_all, resp_all, desc_all, valid_all = [], [], [], [], [], []
+        xy_all, lvl_all, ang_all, resp_all, valid_all, ys_all, xs_all = ([] for _ in range(7))
         for lvl, (budget, s) in enumerate(zip(self.budgets, cfg.scale_factors)):
-            ys, xs, resp, valid, angle, desc = extract_level(
+            ys, xs, resp, valid, angle, ys_safe, xs_safe = detect_level(
                 pyr[lvl], dense[lvl], budget, per_cell=self.per_cell,
-                ic_weights=self.ic_weights, points=self.brief_points)
+                ic_weights=self.ic_weights)
             xy_all.append(torch.stack([xs.to(torch.float32) * s,
                                        ys.to(torch.float32) * s], dim=-1))
             lvl_all.append(torch.full((budget,), lvl, dtype=torch.int32, device=dev))
             ang_all.append(angle)
             resp_all.append(resp)
-            desc_all.append(desc)
             valid_all.append(valid)
+            ys_all.append(ys_safe)
+            xs_all.append(xs_safe)
 
-        pad = cfg.max_keypoints - sum(self.budgets)
+        n_kp = sum(self.budgets)
+        pad = cfg.max_keypoints - n_kp
         xy = torch.cat(xy_all + [torch.zeros((pad, 2), device=dev)])
         lvl = torch.cat(lvl_all + [torch.zeros((pad,), dtype=torch.int32, device=dev)])
         ang = torch.cat(ang_all + [torch.zeros((pad,), device=dev)])
         resp = torch.cat(resp_all + [torch.zeros((pad,), device=dev)])
-        desc = torch.cat(desc_all + [torch.zeros((pad, 8), dtype=torch.int32, device=dev)])
         valid = torch.cat(valid_all + [torch.zeros((pad,), dtype=torch.bool, device=dev)])
         resp = torch.where(valid, resp, torch.zeros_like(resp))
+        # steered BRIEF for every level at once: the cosine and sine of the
+        # angles once per frame, then one kernel
+        ca, sa = orient_brief.angle_cos_sin(ang[:n_kp])
+        desc = cuda_extract.brief_levels([blur for _, _, blur in dense], torch.cat(ys_all),
+                                         torch.cat(xs_all), ca, sa, self.brief_points,
+                                         self.budgets)
+        desc = torch.cat([desc, torch.zeros((pad, 8), dtype=torch.int32, device=dev)])
         return Keypoints(xy=xy, level=lvl, angle=ang, response=resp, desc=desc, valid=valid)
 
 

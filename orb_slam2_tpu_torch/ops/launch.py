@@ -11,6 +11,7 @@ can show that it went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -60,3 +61,19 @@ def launch(kernel: str, fn_name: str, device, *args):
 
 def ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def counters(kernel: str, device, n: int):
+    """The n uint32 counters (as int32) of `kernel` for launches on the
+    current stream of `device`, 0 between launches: the kernel's last block
+    sets them back to 0. Launches on one stream run one after another, so
+    they share a buffer; launches on two streams may overlap, so each
+    stream has its own, and so does each kernel."""
+    return _counters(kernel, device, torch.cuda.current_stream(device).cuda_stream, n)
+
+
+@functools.lru_cache(maxsize=64)
+def _counters(kernel: str, device, stream: int, n: int):
+    # made while `stream` is current on `device`, so the caching allocator
+    # never hands the buffer to another stream while a launch may use it
+    return torch.zeros((n,), dtype=torch.int32, device=device)

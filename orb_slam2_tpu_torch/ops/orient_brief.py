@@ -3,9 +3,10 @@
 
 `ic_angles` replaces `IC_Angle` (`src/ORBextractor.cc:94-141`) with one
 batched patch gather; `steered_brief` replaces `computeOrbDescriptor`
-(`src/ORBextractor.cc:153-204`): the rotated pattern offsets are computed
-here and the sampling, comparison and bit packing run in one kernel
-(`cuda_extract.brief`). Descriptors are 8 words per keypoint held as an
+(`src/ORBextractor.cc:153-204`): the cosine and sine of each angle are
+computed here, and the pattern rotation, sampling, comparison and bit
+packing run in one kernel (`cuda_extract.brief_levels`, over every level of
+a frame in `ORBExtractor`). Descriptors are 8 words per keypoint held as an
 int32 view of the reference's uint32 bits (bit b of word w is pattern pair
 w*32+b).
 """
@@ -102,16 +103,18 @@ def ic_angles(img, ys, xs, weights=None):
     return torch.where(ang < 0, ang + 360.0, ang)
 
 
+def angle_cos_sin(angles_deg):
+    """The float32 cosine and sine of angles in degrees, as the rotation of
+    the pattern uses them."""
+    theta = angles_deg * _DEG2RAD
+    return torch.cos(theta), torch.sin(theta)
+
+
 def rotated_offsets(angles_deg, points):
     """(N, 512) int32 (dx, dy): the pattern points rotated by each angle and
     rounded half-to-even (cvRound in `computeOrbDescriptor`,
     `src/ORBextractor.cc:170`)."""
-    theta = angles_deg * _DEG2RAD
-    ca, sa = torch.cos(theta)[:, None], torch.sin(theta)[:, None]
-    px, py = points[0][None, :], points[1][None, :]
-    dx = torch.round(px * ca - py * sa).to(torch.int32)
-    dy = torch.round(px * sa + py * ca).to(torch.int32)
-    return dx, dy
+    return cuda_extract.rotate_pattern(*angle_cos_sin(angles_deg), points)
 
 
 def steered_brief(img_blur, ys, xs, angles_deg, points=None):
@@ -119,8 +122,9 @@ def steered_brief(img_blur, ys, xs, angles_deg, points=None):
 
     img_blur: (H, W) float (9x9 sigma=2 blurred level image); keypoints at
     integer (ys, xs) with orientation in degrees; points: `brief_points()`
-    as a tensor on img_blur's device (built here when None)."""
+    as a tensor on img_blur's device (built here when None). The one-level
+    case of `cuda_extract.brief_levels`."""
     if points is None:
         points = torch.as_tensor(brief_points(), device=img_blur.device)
-    dx, dy = rotated_offsets(angles_deg, points)
-    return cuda_extract.brief(img_blur, ys, xs, dx, dy)
+    ca, sa = angle_cos_sin(angles_deg)
+    return cuda_extract.brief_levels([img_blur], ys, xs, ca, sa, points, [ys.shape[0]])

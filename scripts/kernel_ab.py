@@ -3,14 +3,25 @@
 
     python3 scripts/kernel_ab.py OTHER_CHECKOUT [--out chiprun_out/kernel_ab.json]
 
-Records, with this checkout's `chip_smoke.py`, frame 0 and the arguments the
-main path hands K5 (frame 1's local-map search, fusion's union at the second
-keyframe event), K6 (frame 1's first pose solve) and local BA (the keyframe
-event of frame 6), then times them in OTHER_CHECKOUT, this checkout, this
-checkout and OTHER_CHECKOUT again, each in a process of its own that
-imports the package, and builds the kernels, of the checkout under test.
-Device time is `chip_smoke._queued_ms` of that checkout (20 calls queued
-behind a sleeping kernel, timed by CUDA events). Timed:
+(the recorded inputs and each run's outputs go to the git-ignored
+`_scratch/kernel_ab/`)
+
+Records, with this checkout's `chip_smoke.py`, the 31 frames of its
+sequence, what the extractor hands K3 on frame 0 (each level's blurred
+image, keypoints and angles) and the arguments the main path hands K5
+(frame 1's local-map search, fusion's union at the second keyframe event),
+K6 (frame 1's first pose solve) and local BA (the keyframe event of frame
+6), then times them in OTHER_CHECKOUT, this checkout, this checkout and
+OTHER_CHECKOUT again, each in a process of its own that imports the
+package, and builds the kernels, of the checkout under test. Device time is
+`chip_smoke._queued_ms` of that checkout (20 calls queued behind a sleeping
+kernel, timed by CUDA events); "per call" is `chip_smoke._event_ms` (CUDA
+events around back-to-back calls, the host's issue included). Timed:
+- K1 per call on frame 0 (one launch, or a launch per level in a checkout
+  without `pack_pyramid_taps`), device time and per call;
+- K3 per frame over frame 0's 8 levels: one `brief_levels` launch from the
+  angles' cosine and sine (and with `angle_cos_sin` before it), or, in a
+  checkout without it, `rotated_offsets` and a `brief` launch per level;
 - K2 per frame over frame 0's 8 pyramid levels, as the checkout's extractor
   runs it (one launch, or a launch per level in a checkout without
   `dense_stage_levels`);
@@ -21,6 +32,10 @@ behind a sleeping kernel, timed by CUDA events). Timed:
   slope from 1x0 to 1x10 is one LM iteration (a sweep with its reduction,
   then the 6x6 solve, the retract and the accept test), 2x0 - 1x0 one sweep
   (and a reclassification), and their difference the solve; K7; K5.
+Each run also saves its outputs: K1's levels, K3's words and K5's results on
+the recorded inputs, and each frame's Tcw and the final map of the 31-frame
+sequence (`chip_smoke.run_sequence` on the kernel path); the summary says
+whether the two checkouts' outputs are equal bit for bit.
 Prints one JSON line per run and a summary; needs a CUDA card.
 """
 import argparse
@@ -88,12 +103,17 @@ def record(path):
     finally:
         schur_ba.solve_ba = solve_ba
     torch.cuda.synchronize()
+    from orb_slam2_tpu_torch.ops import orient_brief
+    img = torch.from_numpy(frames[0][0]).to(dev).to(torch.float32)
+    levels = cs.kernel_inputs(cfg, img, dev)[2]
     torch.save(_portable({"k5": recorded["proj_match"][0], "k6": recorded["pose_lm"][0][:7],
                           "fusion": recorded["proj_match@event"][-1], "ba": ba[-1],
-                          "frame0": torch.from_numpy(frames[0][0])}), path)
+                          "frames": [(torch.from_numpy(g), torch.from_numpy(d)) for g, d in frames],
+                          "brief": [lv[1:] for lv in levels],
+                          "points": torch.as_tensor(orient_brief.brief_points())}), path)
 
 
-def time_kernels(path, label):
+def time_kernels(path, label, out_path):
     import torch
     import chip_smoke as cs
     from orb_slam2_tpu_torch.ops import _build
@@ -112,12 +132,62 @@ def time_kernels(path, label):
     res["pose_normal_eqs_ms"] = cs._queued_ms(lambda: cp.pose_normal_eqs(*k7))
     res["proj_match_frame1_ms"] = cs._queued_ms(lambda: cm.projection_best_two(*k5))
     res["proj_match_fusion_union_ms"] = cs._queued_ms(lambda: cm.projection_best_two(*fusion))
-    res.update(_dense_frame(rec["frame0"].to(dev), cs, dev))
+    outputs = {"k5": cm.projection_best_two(*k5)}
+    frame0 = rec["frames"][0][0].to(torch.float32)
+    res.update(_pyramid_call(frame0, cs, dev, outputs))
+    res.update(_brief_frame(rec["brief"], rec["points"], cs, outputs))
+    res.update(_dense_frame(frame0, cs, dev))
     res.update(_assemble(*rec["ba"], cs))
+    results, _, _, _, events = cs.run_sequence(cs.bench_config(), rec["frames"])
+    outputs["sequence_tcw"] = torch.stack([r.Tcw for r in results])
+    outputs["sequence_map"] = events[-1]["m"]._asdict()
+    torch.save(_portable(outputs), out_path)
     res["shapes"] = {"pose_lm_edges": k6[2].shape[0], "proj_match_frame1": [
         k5[0].shape[0], k5[6].shape[0]], "proj_match_fusion_union": [fusion[0].shape[0],
                                                                      fusion[6].shape[0]]}
     print(json.dumps(res), flush=True)
+
+
+def _pyramid_call(img, cs, dev, outputs):
+    """K1 on frame 0 as the checkout's extractor hands it its taps: device
+    time and per call, and launches per call."""
+    from orb_slam2_tpu_torch.ops import cuda_extract as ce
+    from orb_slam2_tpu_torch.ops import extractor as ex
+    from orb_slam2_tpu_torch.ops import launch
+    taps = ex.extractor_for(cs.bench_config(), cs.H, cs.W, dev).pyramid_taps()
+    fn = lambda: ce.pyramid(img, taps)
+    launch.reset_launches()
+    outputs["pyramid"] = fn()[1:]
+    return {"pyramid_launches_per_call": launch.LAUNCHES["pyramid"],
+            "pyramid_ms": cs._queued_ms(fn), "pyramid_call_ms": cs._event_ms(fn)}
+
+
+def _brief_frame(levels, points, cs, outputs):
+    """K3 over frame 0's levels as the checkout runs it: one `brief_levels`
+    launch from the cosine and sine (and with `angle_cos_sin` before it),
+    or `rotated_offsets` and a `brief` launch per level; device time and
+    per call."""
+    import torch
+    from orb_slam2_tpu_torch.ops import cuda_extract as ce
+    from orb_slam2_tpu_torch.ops import orient_brief as ob
+    points = points.to(levels[0][0].device)
+    if hasattr(ce, "brief_levels"):
+        blurs = [lv[0] for lv in levels]
+        ys, xs, ang = (torch.cat([lv[k] for lv in levels]) for k in (1, 2, 3))
+        counts = [lv[1].shape[0] for lv in levels]
+        ca, sa = ob.angle_cos_sin(ang)
+        fn = lambda: ce.brief_levels(blurs, ys, xs, ca, sa, points, counts)
+        with_cs = lambda: ce.brief_levels(blurs, ys, xs, *ob.angle_cos_sin(ang), points, counts)
+    else:
+        fn = lambda: torch.cat([ce.brief(blur, ys, xs, *ob.rotated_offsets(ang, points))
+                                for blur, ys, xs, ang in levels])
+        with_cs = fn
+    outputs["brief"] = fn()
+    # 4 calls queued: the per-level form issues ~110 kernels a call, and the
+    # device's launch queue must not fill behind the sleeping kernel
+    return {"brief_frame_ms": cs._queued_ms(fn, 4), "brief_frame_call_ms": cs._event_ms(fn),
+            "brief_frame_with_cos_sin_ms": cs._queued_ms(with_cs, 4),
+            "brief_frame_profiler": cs._device_ms(fn, 10)}
 
 
 def _dense_frame(gray, cs, dev):
@@ -158,31 +228,49 @@ def _assemble(cam, prob, level_sigma2, cs):
             "assemble_shape": [*prob.obs_cam.shape, C]}
 
 
+def _same_outputs(a, b):
+    """Per output, whether two runs' saved outputs are equal bit for bit."""
+    import torch
+
+    def equal(x, y):
+        if isinstance(x, torch.Tensor):
+            return isinstance(y, torch.Tensor) and torch.equal(x, y)
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(equal(x[k], y[k]) for k in x)
+        if isinstance(x, (tuple, list)):
+            return len(x) == len(y) and all(equal(u, v) for u, v in zip(x, y))
+        return x == y
+    return {k: equal(a[k], b[k]) for k in a}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("other", help="another checkout of the repo (e.g. the parent commit)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "kernel_ab.json"))
     ap.add_argument("--mode", choices=("run", "record", "time"), default="run")
-    ap.add_argument("--inputs", default=os.path.join(ROOT, "chiprun_out", "kernel_ab_inputs.pt"))
+    ap.add_argument("--inputs", default=os.path.join(ROOT, "_scratch", "kernel_ab", "inputs.pt"))
     ap.add_argument("--label", default="")
+    ap.add_argument("--outputs", default="")
     a = ap.parse_args()
     if a.mode == "record":
         return record(a.inputs)
     if a.mode == "time":
-        return time_kernels(a.inputs, a.label)
+        return time_kernels(a.inputs, a.label, a.outputs)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA card")
     os.makedirs(os.path.dirname(a.out), exist_ok=True)
+    os.makedirs(os.path.dirname(a.inputs), exist_ok=True)
     other = os.path.abspath(a.other)
     if not os.path.exists(os.path.join(other, "orb_slam2_tpu_torch", "csrc")):
         raise SystemExit(f"kernel_ab: no checkout of the port at {other}")
 
-    def child(mode, tree, label=""):
+    def child(mode, tree, label="", outputs=""):
         env = dict(os.environ, PYTHONPATH=tree)
         out = subprocess.run([sys.executable, os.path.abspath(__file__), other, "--mode", mode,
-                              "--inputs", a.inputs, "--label", label], env=env, cwd=tree,
-                             capture_output=True, text=True, check=False, timeout=900)
+                              "--inputs", a.inputs, "--label", label, "--outputs", outputs],
+                             env=env, cwd=tree, capture_output=True, text=True, check=False,
+                             timeout=900)
         if out.returncode:
             raise SystemExit(f"kernel_ab {mode} in {tree} failed:\n{out.stdout}\n{out.stderr}")
         return out.stdout
@@ -191,9 +279,11 @@ def main():
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"[kernel_ab] {card}", flush=True)
     child("record", ROOT)
-    runs = []
-    for label, tree in (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)):
-        line = child("time", tree, label).strip().splitlines()[-1]
+    runs, saved = [], []
+    for i, (label, tree) in enumerate((("other", other), ("this", ROOT), ("this", ROOT),
+                                       ("other", other))):
+        saved.append(os.path.join(os.path.dirname(a.inputs), f"outputs_{i}.pt"))
+        line = child("time", tree, label, saved[-1]).strip().splitlines()[-1]
         print(line, flush=True)
         runs.append(json.loads(line))
     # each kernel's lesser time of its two runs per checkout
@@ -206,6 +296,9 @@ def main():
         t["pose_lm_per_iteration_ms"] = it
         t["pose_lm_per_sweep_ms"] = t["pose_lm_2x0_ms"] - t["pose_lm_1x0_ms"]
         t["pose_lm_solve_ms"] = it - t["pose_lm_per_sweep_ms"]
+    summary["same_outputs"] = _same_outputs(*(torch.load(p) for p in saved[:2]))
+    print(f"[kernel_ab] outputs of the two checkouts equal bit for bit: "
+          f"{summary['same_outputs']}", flush=True)
     with open(a.out, "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps(summary["best_of_two"]), flush=True)

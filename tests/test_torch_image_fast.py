@@ -63,8 +63,10 @@ def test_cpu_tensors_route_to_twins_without_launching():
     assert all(torch.equal(a, b) for a, b in
                zip(ce.dense_stage(img, *args), ce.dense_stage_plain(img, *args)))
     ys = torch.tensor([40, 60], dtype=torch.int32)
-    d = torch.zeros((2, 512), dtype=torch.int32)
-    assert torch.equal(ce.brief(img, ys, ys, d, d), ce.brief_plain(img, ys, ys, d, d))
+    cs = torch.tensor([1.0, 0.6]), torch.tensor([0.0, 0.8])
+    pts = torch.zeros((2, 512))
+    assert torch.equal(ce.brief_levels([img], ys, ys, *cs, pts, [2]),
+                       ce.brief_levels_plain([img], ys, ys, *cs, pts, [2]))
     assert not any(launch.LAUNCHES.values())
     with pytest.raises(ValueError):
         ce.pyramid(img.to("meta"), taps)

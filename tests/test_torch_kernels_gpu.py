@@ -31,6 +31,7 @@ from orb_slam2_tpu_torch.ops import cuda_match as cm
 from orb_slam2_tpu_torch.ops import cuda_pose as cp
 from orb_slam2_tpu_torch.ops import launch
 from orb_slam2_tpu_torch.ops import extractor as ex
+from orb_slam2_tpu_torch.ops import orient_brief
 from orb_slam2_tpu_torch.pipeline import frame as frame_mod
 from orb_slam2_tpu_torch.pipeline import mapping_ops, tracking_step
 from orb_slam2_tpu_torch.solvers import schur_ba
@@ -64,10 +65,66 @@ def test_pyramid_kernel_bit_exact(cuda, h, w):
     got = ce.pyramid(img, taps)
     want = ce.pyramid_plain(img, taps)
     torch.cuda.synchronize()
-    assert launch.LAUNCHES["pyramid"] == before + 7
+    assert launch.LAUNCHES["pyramid"] == before + 1
     for lvl, (a, b) in enumerate(zip(got, want)):
         assert a.shape == b.shape
         assert torch.equal(a, b), (lvl, float((a - b).abs().max()))
+    assert got[1].data_ptr() + 4 * got[1].numel() == got[2].data_ptr()   # one allocation
+
+
+def _pyramid_cases(dev, sizes, n_images=4):
+    """Per size: n_images distinct frames, the packed taps and each frame's
+    twin pyramid (so a stale read of another frame's level shows)."""
+    cases = []
+    for h, w in sizes:
+        taps = ce.pack_pyramid_taps(ex.pyramid_taps(ex.pyramid_sizes(h, w, 8, 1.2), dev), (h, w))
+        imgs = [torch.from_numpy(_image(np.random.default_rng(h * w + i), h, w)).to(dev)
+                for i in range(n_images)]
+        cases.append((taps, imgs, [ce.pyramid_plain(im, taps) for im in imgs]))
+    return cases
+
+
+def test_pyramid_one_launch_repeats_under_load(cuda):
+    """K1's order between levels under load: 200 launches per frame size
+    (the bench's 480x640, a 134x179 pyramid, an odd 101x257), queued while
+    another stream runs matrix products, each launch bit-exact on every
+    level. A stale read of a level before it is written shows as a rare
+    bit difference, not a crash."""
+    cases = _pyramid_cases(cuda, [(480, 640), (134, 179), (101, 257)])
+    side = torch.cuda.Stream(cuda)
+    a = torch.randn(4096, 4096, device=cuda)
+    c = torch.empty_like(a)
+    torch.cuda.synchronize()
+    for taps, imgs, wants in cases:
+        with torch.cuda.stream(side):
+            for _ in range(30):
+                torch.mm(a, a, out=c)
+        runs = [ce.pyramid(imgs[i % len(imgs)], taps) for i in range(200)]
+        torch.cuda.synchronize()
+        for i, got in enumerate(runs):
+            for lvl, (g, w) in enumerate(zip(got, wants[i % len(imgs)])):
+                assert torch.equal(g, w), (taps.sizes[0], i, lvl)
+
+
+def test_pyramid_on_two_streams(cuda):
+    """Pyramids in flight on two streams at once: each stream has its own
+    tickets and flags, and every level equals its twin bit for bit."""
+    (taps, imgs, wants), = _pyramid_cases(cuda, [(480, 640)])
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for i in range(16):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[k].append(ce.pyramid(imgs[(i + k) % len(imgs)], taps))
+    torch.cuda.synchronize()
+    n = sum(h for h, _ in taps.sizes[1:]) + 2
+    assert len({launch._counters("pyramid", cuda, s.cuda_stream, n).data_ptr()
+                for s in streams}) == 2
+    for k, runs in enumerate(got):
+        for i, pyr in enumerate(runs):
+            for g, w in zip(pyr, wants[(i + k) % len(imgs)]):
+                assert torch.equal(g, w), (k, i)
 
 
 @pytest.mark.parametrize("h,w", [(480, 640), (231, 309), (134, 179), (33, 47), (7, 9)])
@@ -110,22 +167,56 @@ def test_dense_stage_levels_one_launch_bit_exact(cuda, h, w):
         ce.dense_stage_levels(levels * 3, 20.0, 7.0, regions * 3)      # 24 levels: over 16
 
 
+def _brief_args(rng, sizes, counts, dev, points=None):
+    """K3's arguments over levels of these sizes: random blurred levels,
+    counts[l] keypoints anywhere in level l (the kernel clamps every
+    sample as the twin does), random angles' cosine and sine."""
+    blurs = [torch.from_numpy(rng.random(s).astype(np.float32) * 255).to(dev) for s in sizes]
+    ys = np.concatenate([rng.integers(0, h, c) for (h, _), c in zip(sizes, counts)])
+    xs = np.concatenate([rng.integers(0, w, c) for (_, w), c in zip(sizes, counts)])
+    ang = torch.from_numpy((rng.random(sum(counts)) * 360).astype(np.float32)).to(dev)
+    ca, sa = orient_brief.angle_cos_sin(ang)
+    if points is None:
+        points = torch.as_tensor(orient_brief.brief_points(), device=dev)
+    t = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)
+    return blurs, t(ys), t(xs), ca, sa, points, list(counts)
+
+
 @pytest.mark.parametrize("h,w,n", [(480, 640, 217), (134, 179, 60), (30, 37, 13)])
 def test_brief_kernel_bit_exact(cuda, h, w, n):
-    rng = np.random.default_rng(n)
-    blur = torch.from_numpy(rng.random((h, w)).astype(np.float32) * 255).to(cuda)
-    # keypoints anywhere, offsets up to the pattern radius: the kernel clamps
-    # every sample into the image exactly as the twin does
-    ys = torch.from_numpy(rng.integers(0, h, n).astype(np.int32)).to(cuda)
-    xs = torch.from_numpy(rng.integers(0, w, n).astype(np.int32)).to(cuda)
-    dx = torch.from_numpy(rng.integers(-19, 20, (n, 512)).astype(np.int32)).to(cuda)
-    dy = torch.from_numpy(rng.integers(-19, 20, (n, 512)).astype(np.int32)).to(cuda)
-    got = ce.brief(blur, ys, xs, dx, dy)
-    want = ce.brief_plain(blur, ys, xs, dx, dy)
+    """One level (`steered_brief`'s case): the rotated pattern, the clamped
+    samples and the packed words bit-exact against the twin."""
+    args = _brief_args(np.random.default_rng(n), [(h, w)], [n], cuda)
+    got = ce.brief_levels(*args)
+    want = ce.brief_levels_plain(*args)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and got.shape == (n, 8)
     assert torch.equal(got, want)
     assert bool((got < 0).any())          # words with the top bit set survive
+
+
+@pytest.mark.parametrize("h,w", [(480, 640), (100, 75)])
+def test_brief_levels_one_launch_bit_exact(cuda, h, w):
+    """A frame's 8 levels in one launch, empty levels among them and, at
+    100x75, levels under 39 px (every sample clamps); rotation of
+    exact-half-way cases (30 and 210 degrees) too: bit-exact against the
+    twin, one launch."""
+    rng = np.random.default_rng(h + w)
+    sizes = ex.pyramid_sizes(h, w, 8, 1.2)
+    counts = [217, 0, 150, 125, 0, 87, 72, 60]
+    args = list(_brief_args(rng, sizes, counts, cuda))
+    ang = torch.full((sum(counts),), 30.0, device=cuda)
+    ang[1::2] = 210.0
+    half = orient_brief.angle_cos_sin(ang)
+    for ca, sa in ((args[3], args[4]), half):
+        args[3], args[4] = ca, sa
+        before = launch.LAUNCHES["brief"]
+        got = ce.brief_levels(*args)
+        want = ce.brief_levels_plain(*args)
+        torch.cuda.synchronize()
+        assert launch.LAUNCHES["brief"] == before + 1
+        assert torch.equal(got, want)
+    assert min(min(s) for s in sizes) < 39 or h == 480
 
 
 def test_wrappers_reject_what_kernels_do_not_take(cuda):
@@ -134,13 +225,19 @@ def test_wrappers_reject_what_kernels_do_not_take(cuda):
         ce.dense_stage(img.double(), 20.0, 7.0, 16, 48, 16, 48)
     with pytest.raises(ValueError):
         ce.dense_stage(img.t()[:, :60], 20.0, 7.0, 16, 44, 16, 48)
-    ys = torch.zeros((4,), dtype=torch.int64, device=cuda)
-    d = torch.zeros((4, 512), dtype=torch.int32, device=cuda)
+    blurs, ys, xs, ca, sa, points, counts = _brief_args(np.random.default_rng(0), [(64, 64)],
+                                                        [4], cuda)
     with pytest.raises(ValueError):
-        ce.brief(img, ys, ys, d, d)
+        ce.brief_levels(blurs, ys.long(), xs, ca, sa, points, counts)
+    with pytest.raises(ValueError):
+        ce.brief_levels(blurs, ys, xs, ca, sa, points, [3])              # counts != N
+    with pytest.raises(ValueError):
+        ce.brief_levels([img.t()], ys, xs, ca, sa, points, counts)       # not contiguous
     empty = torch.zeros((0,), dtype=torch.int32, device=cuda)
-    e2 = torch.zeros((0, 512), dtype=torch.int32, device=cuda)
-    assert ce.brief(img, empty, empty, e2, e2).shape == (0, 8)
+    assert ce.brief_levels(blurs, empty, empty, ca[:0], sa[:0], points, [0]).shape == (0, 8)
+    taps = ce.pack_pyramid_taps(ex.pyramid_taps(ex.pyramid_sizes(64, 64, 3, 1.2), cuda), (64, 64))
+    with pytest.raises(ValueError):
+        ce.pyramid(torch.zeros((64, 63), device=cuda), taps)           # taps of another size
 
 
 def test_make_frame_rgbd_kernel_path_equals_twin_path(cuda, monkeypatch):
@@ -155,10 +252,10 @@ def test_make_frame_rgbd_kernel_path_equals_twin_path(cuda, monkeypatch):
     got = frame_mod.make_frame_rgbd(gray, depth, cfg)
     torch.cuda.synchronize()
     assert launch.LAUNCHES == {**dict.fromkeys(launch.LAUNCHES, 0),
-                               "pyramid": 3, "dense_stage": 1, "brief": 4}
+                               "pyramid": 1, "dense_stage": 1, "brief": 1}
     monkeypatch.setattr(ce, "pyramid", ce.pyramid_plain)
     monkeypatch.setattr(ce, "dense_stage_levels", ce.dense_stage_levels_plain)
-    monkeypatch.setattr(ce, "brief", ce.brief_plain)
+    monkeypatch.setattr(ce, "brief_levels", ce.brief_levels_plain)
     want = frame_mod.make_frame_rgbd(gray, depth, cfg)
     torch.cuda.synchronize()
     assert int(got.valid.sum()) > 250
@@ -263,10 +360,49 @@ def test_proj_match_kernel_bit_exact_on_edge_cases(cuda, case):
         assert not bool((got[0] < cm.BIG).any())
 
 
-def test_proj_match_rejects_too_many_keypoints(cuda):
-    args = _proj_inputs(np.random.default_rng(0), 4, cm.PROJ_MAX_TARGETS + 1, cuda)
-    with pytest.raises(ValueError):
-        cm.projection_best_two(*args)
+def _across_tiles(args):
+    """For the first points (up to 64): a keypoint in the last tile of
+    PROJ_TILE staged keypoints equal to the point, and one in tile 0 at the
+    same place and octave that is equal too (even rows: a tie, which the
+    lower column, in tile 0, wins, the second best 0 from the last tile) or
+    one bit off (odd rows: the best in the last tile turns tile 0's best
+    into the second best, 1). Returns the rows with their expected (best,
+    index, second)."""
+    n = args[6].shape[0]
+    last = (n - 1) // cm.PROJ_TILE * cm.PROJ_TILE
+    expect = {}
+    for row, other in enumerate(range(last, min(n, last + 64))):
+        first = 64 + row
+        for k in (first, other):
+            args[6][k], args[7][k], args[8][k], args[9][k] = args[0][row], args[2][row], -1.0, True
+        args[10][first], args[10][other] = args[5][row], args[5][row]
+        if row % 2:
+            args[10][first][0] ^= 1
+        args[1][row], args[4][row] = 6.0, True
+        expect[row] = (0, first, 0) if row % 2 == 0 else (0, other, 1)
+    return expect
+
+
+@pytest.mark.parametrize("n", [cm.PROJ_TILE + 1, 2 * cm.PROJ_TILE, 20000])
+def test_proj_match_kernel_bit_exact_above_one_tile(cuda, n):
+    """K5 past one tile of staged keypoints: N = 8193 (a last tile of one),
+    16,384 (two full tiles: an 8,000-feature setting's max_keypoints) and
+    20,000 (three), with P = 8192 points, a tie across a tile border and a
+    best that moves to a later tile: bit-exact against the twin, one
+    launch."""
+    args = list(_proj_inputs(np.random.default_rng(n), 8192, n, cuda))
+    expect = _across_tiles(args)
+    args = tuple(a.contiguous() for a in args)
+    before = launch.LAUNCHES["proj_match"]
+    got = cm.projection_best_two(*args)
+    want = cm.projection_best_two_plain(*args)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["proj_match"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for row, triple in expect.items():
+        assert tuple(int(t[row]) for t in got) == triple, row
+    assert int((got[0] < 100).sum()) > 8192 // 4
 
 
 def _pose_scene(rng, n, stereo, outliers, dev, bf=40.0):
@@ -428,10 +564,11 @@ def test_tracking_step_kernel_path_equals_twin_path(cuda, monkeypatch):
         assert launch.LAUNCHES[name] >= 2, launch.LAUNCHES
     for name, twin in (("pyramid", ce.pyramid_plain),
                        ("dense_stage_levels", ce.dense_stage_levels_plain),
-                       ("brief", ce.brief_plain), ("masked_best_two", cm.masked_best_two_plain),
+                       ("brief_levels", ce.brief_levels_plain),
+                       ("masked_best_two", cm.masked_best_two_plain),
                        ("projection_best_two", cm.projection_best_two_plain),
                        ("pose_lm", cp.pose_lm_plain)):
-        monkeypatch.setattr(ce if name in ("pyramid", "dense_stage_levels", "brief") else
+        monkeypatch.setattr(ce if name in ("pyramid", "dense_stage_levels", "brief_levels") else
                             cm if "best_two" in name else cp, name, twin)
     launch.reset_launches()
     want = run()
@@ -577,7 +714,7 @@ def test_ba_assemble_on_two_streams(cuda):
             with torch.cuda.stream(s):
                 got[i].append(cb.ba_assemble(*args, True))
     torch.cuda.synchronize()
-    bufs = {cb._counters(cuda, s.cuda_stream, 65).data_ptr() for s in streams}
+    bufs = {launch._counters("ba_edge", cuda, s.cuda_stream, 65).data_ptr() for s in streams}
     assert len(bufs) == 2
     for args, runs in zip(problems, got):
         want = cb.ba_assemble_plain(*args, True)
@@ -631,7 +768,7 @@ def test_keyframe_pass_kernel_path_equals_twin_path(cuda, monkeypatch):
     assert launch.LAUNCHES["epi_match"] == 2 and launch.LAUNCHES["ba_edge"] == 17
     for mod, name, twin in ((ce, "pyramid", ce.pyramid_plain),
                             (ce, "dense_stage_levels", ce.dense_stage_levels_plain),
-                            (ce, "brief", ce.brief_plain),
+                            (ce, "brief_levels", ce.brief_levels_plain),
                             (cm, "masked_best_two", cm.masked_best_two_plain),
                             (cm, "projection_best_two", cm.projection_best_two_plain),
                             (cm, "epi_best_two", cm.epi_best_two_plain),

@@ -1,5 +1,6 @@
 """A numpy model of K5's one-pass search (`csrc/proj_match.cu`) against its
-twin `projection_best_two_plain`, on the CPU.
+twin `projection_best_two_plain`, on the CPU, with all keypoints in one tile
+and in tiles (the kernel's loop for N > 8192, modelled at small tile sizes).
 
 The model repeats the kernel's decisions step by step: the bucket grid
 (32 px cells doubled until levels x cells <= 4096, from the valid finite
@@ -8,8 +9,12 @@ bucket shuffled, as the shared atomics may leave it), 32 lanes that take one
 (octave, cell row) run of buckets each with a one-cell margin, or every
 column when the window is too far out or not finite, the per-lane,
 per-octave least key and second-least distance, and the two warp minimums.
-The twin decides from the dense (P, N) mask in two passes; the two must be
-equal on every row, ties and edges included.
+In tiles: the grid and sort per tile, the lanes on the tile's columns, at
+the tile's end each octave's pair (least key, second-least distance) by two
+warp minimums, merged with the earlier tiles' pair (the lesser key; the
+least of the two distances and the larger key's distance). The twin decides
+from the dense (P, N) mask in two passes; the two must be equal on every
+row, ties and edges included.
 """
 import numpy as np
 import pytest
@@ -47,21 +52,41 @@ def _level(lvl, nl):
     return min(max(int(lvl), 0), nl - 1)
 
 
-def lane_model(rng, uv, radius, pred, p_ur, p_valid, p_desc, kp_xy, kp_level, kp_ur, kp_valid,
-               kp_desc):
-    n = kp_xy.shape[0]
-    fin = kp_valid & np.isfinite(kp_xy).all(1)
-    inv, gx, gy, nl = _grid(kp_xy, kp_level, fin)
-    bucket = np.full(n, -1)
+def _tile_buckets(rng, kp_xy, kp_level, kp_valid, c0, c1):
+    """The grid and counting sort of one tile of columns [c0, c1): the
+    grid, off (off[b + 1] = bucket b's end) and the sorted (global) columns,
+    each bucket's order shuffled as the shared atomics may leave it."""
+    tile = np.arange(c0, c1)
+    fin = kp_valid[tile] & np.isfinite(kp_xy[tile]).all(1)
+    inv, gx, gy, nl = _grid(kp_xy[tile], kp_level[tile], fin)
+    bucket = np.full(len(tile), -1)
     for c in np.flatnonzero(fin):
-        bucket[c] = ((_level(kp_level[c], nl) * gy + _cell(kp_xy[c, 1], inv, gy)) * gx
-                     + _cell(kp_xy[c, 0], inv, gx))
+        col = tile[c]
+        bucket[c] = ((_level(kp_level[col], nl) * gy + _cell(kp_xy[col, 1], inv, gy)) * gx
+                     + _cell(kp_xy[col, 0], inv, gx))
     counts = np.bincount(bucket[fin], minlength=MAX_BUCKETS)
     end = np.cumsum(counts)                       # off[b + 1] after the scatter
     off = np.concatenate([[0], end])
     cols = np.empty(int(end[-1]), np.int64)
     for b in np.flatnonzero(counts):
-        cols[off[b]:off[b + 1]] = rng.permutation(np.flatnonzero(bucket == b))
+        cols[off[b]:off[b + 1]] = tile[rng.permutation(np.flatnonzero(bucket == b))]
+    return (inv, gx, gy, nl), off, cols
+
+
+def _key_dist(key, n):
+    return BIG if key == INT_MAX else key // n
+
+
+def lane_model(rng, uv, radius, pred, p_ur, p_valid, p_desc, kp_xy, kp_level, kp_ur, kp_valid,
+               kp_desc, tile=None):
+    """The kernel's decisions on every row, its keypoints in tiles of `tile`
+    columns (all in one tile when None, the kernel's path for N <= 8192).
+    Returns (best, idx, second) and the columns each row visited."""
+    n = kp_xy.shape[0]
+    tile = n if tile is None else tile
+    tiles = [(c0, min(c0 + tile, n), *_tile_buckets(rng, kp_xy, kp_level, kp_valid, c0,
+                                                      min(c0 + tile, n)))
+             for c0 in range(0, n, tile)]
     dist = _popcount(p_desc[:, None, :] ^ kp_desc[None, :, :])
 
     best = np.full(len(uv), BIG), np.zeros(len(uv), np.int64), np.full(len(uv), BIG)
@@ -70,48 +95,70 @@ def lane_model(rng, uv, radius, pred, p_ur, p_valid, p_desc, kp_xy, kp_level, kp
         if not p_valid[row]:
             continue
         u, v, r, pur, pl = uv[row, 0], uv[row, 1], radius[row], p_ur[row], int(pred[row])
-        k1 = np.full((32, 2), INT_MAX, np.int64)
-        d2 = np.full((32, 2), BIG, np.int64)
+        carry = None                               # (K1, D2) per octave of the earlier tiles
+        for t, (c0, c1, (inv, gx, gy, nl), off, cols) in enumerate(tiles):
+            k1 = np.full((32, 2), INT_MAX, np.int64)
+            d2 = np.full((32, 2), BIG, np.int64)
 
-        def visit(lane, col):
-            visits[row] += 1
-            kx, ky, kl, kur = kp_xy[col, 0], kp_xy[col, 1], int(kp_level[col]), kp_ur[col]
-            if not kp_valid[col] or not (abs(u - kx) < r) or not (abs(v - ky) < r):
-                return
-            if kl < pl - 1 or kl > pl:
-                return
-            if pur >= 0 and kur >= 0 and not (abs(pur - kur) < r):
-                return
-            li, d = kl - (pl - 1), int(dist[row, col])
-            key = d * n + col
-            if key < k1[lane, li]:
-                if k1[lane, li] != INT_MAX:
-                    d2[lane, li] = min(d2[lane, li], k1[lane, li] // n)
-                k1[lane, li] = key
-            else:
-                d2[lane, li] = min(d2[lane, li], d)
+            def visit(lane, col):
+                visits[row] += 1
+                kx, ky, kl, kur = kp_xy[col, 0], kp_xy[col, 1], int(kp_level[col]), kp_ur[col]
+                if not kp_valid[col] or not (abs(u - kx) < r) or not (abs(v - ky) < r):
+                    return
+                if kl < pl - 1 or kl > pl:
+                    return
+                if pur >= 0 and kur >= 0 and not (abs(pur - kur) < r):
+                    return
+                li, d = kl - (pl - 1), int(dist[row, col])
+                key = d * n + col
+                if key < k1[lane, li]:
+                    if k1[lane, li] != INT_MAX:
+                        d2[lane, li] = min(d2[lane, li], k1[lane, li] // n)
+                    k1[lane, li] = key
+                else:
+                    d2[lane, li] = min(d2[lane, li], d)
 
-        near = np.isfinite(r) and abs(u) + r < FAR_OUT and abs(v) + r < FAR_OUT
-        if r > 0 and not near:
-            for col in range(n):
-                visit(col % 32, col)
-        elif r > 0:
-            cx0, cx1 = max(_cell(u - r, inv, gx) - 1, 0), min(_cell(u + r, inv, gx) + 1, gx - 1)
-            cy0, cy1 = max(_cell(v - r, inv, gy) - 1, 0), min(_cell(v + r, inv, gy) + 1, gy - 1)
-            l0, l1 = _level(pl - 1, nl), _level(pl, nl)
-            ny = cy1 - cy0 + 1
-            for sp in range((l1 - l0 + 1) * ny):
-                b0 = ((l0 + sp // ny) * gy + cy0 + sp % ny) * gx + cx0
-                for i in range(off[b0], off[b0 + cx1 - cx0 + 1]):
-                    visit(sp % 32, cols[i])
-        kmin = int(k1.min())
-        if kmin == INT_MAX:
-            continue
-        b, bidx = kmin // n, kmin % n
-        li = int(kp_level[bidx]) - (pl - 1)
-        own = k1[:, li]
-        lanes = np.where(own == kmin, d2[:, li], np.where(own == INT_MAX, BIG, own // n))
-        best[0][row], best[1][row], best[2][row] = b, bidx, int(lanes.min())
+            near = np.isfinite(r) and abs(u) + r < FAR_OUT and abs(v) + r < FAR_OUT
+            if r > 0 and not near:
+                for col in range(c0, c1):
+                    visit((col - c0) % 32, col)
+            elif r > 0:
+                cx0, cx1 = max(_cell(u - r, inv, gx) - 1, 0), min(_cell(u + r, inv, gx) + 1, gx - 1)
+                cy0, cy1 = max(_cell(v - r, inv, gy) - 1, 0), min(_cell(v + r, inv, gy) + 1, gy - 1)
+                l0, l1 = _level(pl - 1, nl), _level(pl, nl)
+                ny = cy1 - cy0 + 1
+                for sp in range((l1 - l0 + 1) * ny):
+                    b0 = ((l0 + sp // ny) * gy + cy0 + sp % ny) * gx + cx0
+                    for i in range(off[b0], off[b0 + cx1 - cx0 + 1]):
+                        visit(sp % 32, cols[i])
+            if len(tiles) == 1:                    # the one-tile reduction
+                kmin = int(k1.min())
+                if kmin == INT_MAX:
+                    continue
+                b, bidx = kmin // n, kmin % n
+                li = int(kp_level[bidx]) - (pl - 1)
+                own = k1[:, li]
+                lanes = np.where(own == kmin, d2[:, li], np.where(own == INT_MAX, BIG, own // n))
+                best[0][row], best[1][row], best[2][row] = b, bidx, int(lanes.min())
+                continue
+            # the tile's pair per octave (two warp minimums each), merged
+            pair = []
+            for li in range(2):
+                K1 = int(k1[:, li].min())
+                D2 = int(np.where(k1[:, li] == K1, d2[:, li],
+                                  [_key_dist(k, n) for k in k1[:, li]]).min())
+                if carry is not None:
+                    Kc, Dc = carry[li]
+                    D2 = min(D2, Dc, _key_dist(max(K1, Kc), n))
+                    K1 = min(K1, Kc)
+                pair.append((K1, D2))
+            carry = pair
+        if carry is not None:
+            (ka, da), (kb, db) = carry
+            kmin = min(ka, kb)
+            if kmin != INT_MAX:
+                best[0][row], best[1][row] = kmin // n, kmin % n
+                best[2][row] = db if kmin == kb else da
     return best, visits
 
 
@@ -174,3 +221,48 @@ def test_lane_model_equals_twin(seed):
     assert (second[:20] == best[:20]).sum() >= 10
     assert (best == BIG).sum() > 0 and visits[34] == 500
     assert np.median(visits[35:][args[4][35:]]) < 100
+
+
+def _tie_across_tiles(args, tile, rows=range(40, 60)):
+    """Force ties across tile borders: for each row, the best keypoint in
+    one tile, its twin (same descriptor, octave and place) in the next, and
+    a second candidate at the best's octave one bit off in the one after,
+    so best, index and second each come from a tile of their own where
+    three tiles still have free columns (each keypoint used once). Returns
+    the rows forced."""
+    uv, radius, pred, p_ur, p_valid, p_desc, kp_xy, kp_level, kp_ur, kp_valid, kp_desc = args
+    n = kp_xy.shape[0]
+    free = [list(range(c0, min(c0 + tile, n))) for c0 in range(0, n, tile)]
+    forced = []
+    for k, row in enumerate(rows):
+        live = [f for f in free if f]
+        pool = [live[(k + j) % len(live)] for j in range(3)] if len(live) > 1 else []
+        if not pool or (pool[0] is pool[2] and len(pool[0]) < 2):
+            continue
+        c, twin, near = (f.pop(0) for f in pool)
+        for col in (c, twin, near):
+            kp_xy[col], kp_level[col], kp_ur[col], kp_valid[col] = uv[row], pred[row], -1.0, True
+        kp_desc[c] = kp_desc[twin] = p_desc[row]
+        kp_desc[near] = p_desc[row] ^ np.int32(1)
+        radius[row], p_valid[row] = np.float32(6), True
+        forced.append(row)
+    return forced
+
+
+@pytest.mark.parametrize("seed,n,tile", [(3, 200, 64), (4, 130, 7), (5, 200, 100),
+                                         (6, 129, 64)])
+def test_tiled_lane_model_equals_twin(seed, n, tile):
+    """The tile loop (N = 200 in tiles of 64; 130 in 19 tiles of 7; 200 in
+    two tiles; 129 in two tiles of 64 and one of 1), ties forced across
+    tile borders: equal to the twin on every row; the forced ties give
+    best == second."""
+    rng = np.random.default_rng(seed)
+    args = _inputs(rng, 120, n)
+    forced = _tie_across_tiles(args, tile)
+    (best, idx, second), _ = lane_model(rng, *args, tile=tile)
+    want = cm.projection_best_two_plain(*(torch.from_numpy(np.ascontiguousarray(a))
+                                          for a in args))
+    for name, g, w in zip(("best", "idx", "second"), (best, idx, second), want):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
+    assert len(forced) >= 2 and (best[forced] == second[forced]).sum() >= len(forced) // 2
+    assert (best < BIG).sum() > 30
