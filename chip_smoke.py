@@ -11,12 +11,15 @@ Phases (each prints its result; any failure exits non-zero):
                spills;
 3. parity    — each kernel against its plain-PyTorch twin on the card:
                K1-K3 at every pyramid level of the 12 front-end frames at
-               640x480 (each in its one launch over the pyramid), K4/K5/K8
-               and every field of the K9 assembly bit-exact, K6/K7 within
-               tolerance; on the inputs the main path hands them on real
-               frames and keyframe events (K5 also on fusion's), and on
-               synthetic ones with degenerate cases (K5 also at N = 16,384
-               keypoints, two tiles, ties across the tile border);
+               640x480 (each in its one launch over the pyramid), K4 (the
+               motion-model search with its gate, and the BoW-node form),
+               K5, K8 (the event's search from the map's rows) and every
+               field of the K9 assembly bit-exact, K6/K7 within tolerance;
+               on the inputs the main path hands them on real frames and
+               keyframe events (K5 also on fusion's), and on synthetic ones
+               with degenerate cases (K4 under each octave rule and past
+               one tile, K5 also at N = 16,384 keypoints, two tiles, ties
+               across the tile border);
 4. main path — PlateWorld 640x480, 1000 features, 8 levels (the reference
                bench's configuration), the bench loop's first 31 poses:
                frame 0 through `make_frame_rgbd` and the RGB-D
@@ -40,8 +43,10 @@ Phases (each prints its result; any failure exits non-zero):
                and operations its function needs on this run's inputs) and,
                where one PyTorch call computes the same function, its time
                (K1: F.interpolate); K1, K2 and K3 per frame (one launch
-               each over all levels), K5 at fusion's union and at N =
-               16,384, K6 split by its schedule (1x0, 2x0, 1x10, 4x10).
+               each over all levels), K4 as the motion-model search unit
+               and its node form at 2048 x 2048, K5 at fusion's union and
+               at N = 16,384, K8 as the event's search unit, K6 split by
+               its schedule (1x0, 2x0, 1x10, 4x10).
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -146,21 +151,23 @@ SOURCES = {   # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
     "ba_edge": ("orb_slam2_tpu_torch/csrc/ba_edge.cu",
                 "orb_slam2_tpu/ops/pallas_kernels.py:466"),
 }
-WRAPPERS = {  # kernel: (module, wrapper, twin)
+WRAPPERS = {  # kernel (K4's node form: best_two_node): (module, wrapper, twin)
     "pyramid": (ce, "pyramid", ce.pyramid_plain),
     "dense_stage": (ce, "dense_stage_levels", ce.dense_stage_levels_plain),
     "brief": (ce, "brief_levels", ce.brief_levels_plain),
-    "best_two": (cm, "masked_best_two", cm.masked_best_two_plain),
+    "best_two": (cm, "window_best_two", cm.window_best_two_plain),
+    "best_two_node": (cm, "node_best_two", cm.node_best_two_plain),
     "proj_match": (cm, "projection_best_two", cm.projection_best_two_plain),
     "pose_lm": (cp, "pose_lm", cp.pose_lm_plain),
     "pose_normal_eqs": (cp, "pose_normal_eqs", cp.pose_normal_eqs_plain),
-    "epi_match": (cm, "epi_best_two", cm.epi_best_two_plain),
+    "epi_match": (cm, "epi_match_keyframes", cm.epi_match_keyframes_plain),
     "ba_edge": (cb, "ba_assemble", cb.ba_assemble_plain),
 }
-RECORDED = ("best_two", "proj_match", "pose_lm", "epi_match", "ba_edge")
-HAND_KERNELS = ("pyramid_kernel", "dense_stage_kernel", "brief_kernel", "best_two_kernel",
-                "proj_match_kernel", "pose_lm_kernel", "pose_normal_eqs_kernel",
-                "epi_match_kernel", "ba_assemble_kernel")   # their __global__ names in csrc/
+RECORDED = ("best_two", "best_two_node", "proj_match", "pose_lm", "epi_match", "ba_edge")
+HAND_KERNELS = ("pyramid_kernel", "dense_stage_kernel", "brief_kernel", "window_best_two_kernel",
+                "node_best_two_kernel", "proj_match_kernel", "pose_lm_kernel",
+                "pose_normal_eqs_kernel", "epi_match_kernel",
+                "ba_assemble_kernel")   # their __global__ names in csrc/
 PHASE = ["track"]           # "event" while run_sequence is inside keyframe_pass
 
 
@@ -229,8 +236,9 @@ def twins(keep=()):
 
 @contextmanager
 def recording(calls):
-    """Record the arguments the main path hands K4, K5, K6, K8 and K9 (by
-    kernel; a call inside a keyframe event also under "<kernel>@event")."""
+    """Record the arguments the main path hands K4 (both forms), K5, K6, K8
+    and K9 (by WRAPPERS key; a call inside a keyframe event also under
+    "<key>@event")."""
     saved = {k: getattr(WRAPPERS[k][0], WRAPPERS[k][1]) for k in RECORDED}
 
     def recorder(k):
@@ -345,14 +353,17 @@ def _random_desc(rng, n, dev):
 
 
 def _synthetic_proj_tiles(rng, dev, p=8192, n=16384):
-    """K5's arguments at P points x N keypoints (an 8,000-feature setting's
-    max_keypoints: two tiles of `cm.PROJ_TILE` staged keypoints): keypoints
-    across a 640x480 frame on 8 octaves, points near them. For points 0-63
-    a keypoint in tile 1 equal to the point, and one in tile 0 at the same
-    place and octave that is equal too (even points: a tie, which tile 0's
-    lower column wins, the second best 0 in tile 1) or one bit off (odd:
-    the best moves to tile 1 and tile 0's becomes the second best, 1).
-    Returns the arguments and each forced point's (best, index, second)."""
+    """K5's arguments at P points x N keypoints (by default an 8,000-feature
+    setting's max_keypoints: two tiles of `cm.PROJ_TILE` staged keypoints;
+    K4's window form takes the same sources and targets): keypoints across
+    a 640x480 frame on 8 octaves, points near them. For points 0-63 a
+    keypoint in tile 1 (in the one tile's last columns where N is one tile;
+    at N = 8193 point 0 alone) equal to the point, and one in tile 0 at the
+    same place and octave that is equal too (even points: a tie, which tile
+    0's lower column wins, the second best 0 in tile 1) or one bit off
+    (odd: the best moves to tile 1 and tile 0's becomes the second best,
+    1). Returns the arguments and each forced point's (best, index,
+    second)."""
     kp_xy = np.stack([rng.uniform(0, W, n), rng.uniform(0, H, n)], 1).astype(np.float32)
     kp_level = rng.integers(0, 8, n).astype(np.int32)
     kp_ur = np.where(rng.random(n) < 0.5, kp_xy[:, 0] - rng.uniform(1, 30, n), -1).astype(np.float32)
@@ -366,8 +377,9 @@ def _synthetic_proj_tiles(rng, dev, p=8192, n=16384):
                              & np.uint32(0x01010101)).view(np.int32)
     p_valid, kp_valid = rng.random(p) < 0.9, rng.random(n) < 0.9
     expect = {}
-    for row in range(64):
-        first, other = 64 + row, cm.PROJ_TILE + row
+    base = cm.PROJ_TILE if n > cm.PROJ_TILE else n - 64      # the first column of "tile 1"
+    for row in range(min(64, n - base)):
+        first, other = 64 + row, base + row
         kp_xy[[first, other]], kp_level[[first, other]] = uv[row], pred[row]
         kp_ur[[first, other]], kp_valid[[first, other]] = -1.0, True
         kp_desc[[first, other]] = p_desc[row]
@@ -404,23 +416,44 @@ def _synthetic_pose_edges(rng, n, stereo, dev):
 
 def match_pose_parity(recorded, dev, errs):
     """K4-K7 against their twins on the main path's own inputs and on
-    synthetic ones (random masks with rows masked everywhere, P=8192 local
-    maps, stereo and mono pose problems with 20 % outliers, and the
-    degenerate pose problems of `degenerate_pose_parity`)."""
+    synthetic ones (K4's window form under each octave rule with empty rows
+    and past one tile, its node form with every node 0 and with many nodes
+    and -1; P=8192 local maps, stereo and mono pose problems with 20 %
+    outliers, and the degenerate pose problems of
+    `degenerate_pose_parity`)."""
     rng = np.random.default_rng(0)
-    cases = [("motion-model search, frame 1", recorded["best_two"][0])]
-    for n, m, density in ((2048, 2048, 0.01), (777, 2048, 0.3)):
-        mask = torch.from_numpy(rng.random((n, m)) < density).to(dev)
-        mask[::11] = False
-        cases.append((f"random {n}x{m}, rows masked everywhere",
-                      (_random_desc(rng, n, dev), _random_desc(rng, m, dev), mask)))
-    for what, args in cases:
-        got, want = cm.masked_best_two(*args), cm.masked_best_two_plain(*args)
+    window = [("motion-model search, frame 1", recorded["best_two"][0], {})]
+    for rule in ((-1, 1), (0, cm.OPEN), (cm.OPEN, 0)):
+        args, expect = _synthetic_proj_tiles(rng, dev, p=2048, n=2048)
+        args[1][100::9] = 0.0                                  # empty rows
+        window.append((f"synthetic 2048x2048, octaves {rule}, empty rows", args + (rule,), expect))
+    for n in (cm.PROJ_TILE + 1, 2 * cm.PROJ_TILE):
+        args, expect = _synthetic_proj_tiles(rng, dev, p=2048, n=n)
+        window.append((f"synthetic 2048x{n} (two tiles), best and second in different tiles",
+                       args + ((-1, 1),), expect))
+    for what, args, expect in window:
+        got, want = cm.window_best_two(*args), cm.window_best_two_plain(*args)
         torch.cuda.synchronize()
         for name, a, b in zip(("best", "idx", "second"), got, want):
-            _require_equal(f"best_two {what} {name}", a, b)
-        log(f"[parity] best_two {what} ({args[0].shape[0]}x{args[1].shape[0]}, "
-            f"{int(args[2].sum())} candidates): bit-exact")
+            errs["best_two"] = max(errs["best_two"], _max_abs(a, b))
+            _require_equal(f"best_two window form, {what} {name}", a, b)
+        if any(tuple(int(t[r]) for t in got) != e for r, e in expect.items()):
+            raise AssertionError(f"best_two window form, {what}: the forced rows are not {expect}")
+        log(f"[parity] best_two window form, {what} ({args[0].shape[0]}x{args[6].shape[0]}, "
+            f"{int((got[0] < cm.BIG).sum())} rows with a candidate): bit-exact")
+    node = [(f"tracking fallback, frame {i}", a) for i, a in
+            enumerate(recorded.get("best_two_node", [])[:2])]
+    node += [(f"synthetic 2048x2048, {what}", _synthetic_node(rng, 2048, 2048, nodes, dev))
+             for what, nodes in (("every node 0 (the tracking fallback)", 1),
+                                 ("64 nodes and -1", 64))]
+    for what, args in node:
+        got, want = cm.node_best_two(*args), cm.node_best_two_plain(*args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("best", "idx", "second"), got, want):
+            errs["best_two"] = max(errs["best_two"], _max_abs(a, b))
+            _require_equal(f"best_two node form, {what} {name}", a, b)
+        log(f"[parity] best_two node form, {what} ({args[1].shape[0]}x{args[4].shape[0]}, "
+            f"{int((got[0] < cm.BIG).sum())} rows with a candidate): bit-exact")
 
     rec = recorded["proj_match"][0]
     uv, radius, pred, p_ur, p_valid, p_desc, kp_xy, kp_level, kp_ur, kp_valid, kp_desc = rec
@@ -530,29 +563,71 @@ def degenerate_pose_parity(rng, dev):
     return [("rank-deficient, 2 valid edges", rank_def)]
 
 
-def _synthetic_epi(rng, b, n, dev):
-    """K8's arguments at B x N: each row's epipolar line passes near one
-    target that resembles it; a third of the kf1 features bound (rows with
-    no candidate), one neighbour with every feature near the epipole."""
-    desc1 = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
-    flips = rng.integers(0, 2 ** 32, (b, n, 8), dtype=np.uint32) & \
-        rng.integers(0, 2 ** 32, (b, n, 8), dtype=np.uint32)
-    desc2 = rng.integers(0, 2 ** 32, (b, n, 8), dtype=np.uint32)
-    xy2 = np.stack([rng.uniform(0, W, (b, n)), rng.uniform(0, H, (b, n))], -1)
-    ang = rng.uniform(0, np.pi, (b, n))
-    j0 = rng.integers(0, n, (b, n))
-    for k in range(b):
-        desc2[k, j0[k]] = desc1 ^ flips[k]
-    x0, y0 = (np.take_along_axis(xy2[..., c], j0, 1) for c in (0, 1))
-    scale = rng.uniform(1e-3, 10.0, (b, n))
-    la, lb = np.cos(ang) * scale, np.sin(ang) * scale
-    lc = -(la * x0 + lb * y0) + rng.normal(0, 1.5, (b, n)) * scale
-    far = rng.random((b, n)) < 0.95
-    far[0] = False
-    t = lambda a, dt=np.float32: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
-    return (t(desc1.view(np.int32), np.int32), t(np.arange(n) % 3 != 0, bool), t(la), t(lb),
-            t(lc), t(desc2.view(np.int32), np.int32), t(xy2), t(rng.random((b, n)) < 0.8, bool),
-            t(3.84 * 1.44 ** rng.integers(0, 8, (b, n))), t(far, bool))
+def _synthetic_node(rng, n, m, nodes, dev):
+    """K4's node-form arguments at N x M: 5 % of each side invalid;
+    vocabulary nodes in [0, nodes), a tenth of the sources with node -1
+    (nodes = 1: the tracking fallback's, node 0 for every valid feature and
+    -1 for every other); half the targets near-duplicates of sources, and
+    pairs of equal targets (ties)."""
+    desc_a = _random_desc(rng, n, dev)
+    desc_b = _random_desc(rng, m, dev)
+    k = min(n, m) // 2
+    desc_b[:k] = desc_a[:k] ^ _random_desc(rng, k, dev) & 0x00100010
+    desc_b[k:k + 64] = desc_b[:64]
+    valid_a, valid_b = (torch.from_numpy(rng.random(c) < 0.95).to(dev) for c in (n, m))
+    node_a = torch.from_numpy(rng.integers(0, nodes, n).astype(np.int32)).to(dev)
+    node_b = torch.from_numpy(rng.integers(0, nodes, m).astype(np.int32)).to(dev)
+    if nodes == 1:
+        node_a, node_b = (torch.where(v, t, t - 1) for v, t in ((valid_a, node_a), (valid_b, node_b)))
+    else:
+        node_a[torch.from_numpy(rng.random(n) < 0.1).to(dev)] = -1
+    return node_a, desc_a, valid_a, node_b, desc_b, valid_b
+
+
+def _synthetic_epi(rng, b, n, dev, bound_kf1=False):
+    """K8's arguments (`epi_match_keyframes`) for B neighbours x N features,
+    from a synthetic map of B + 1 keyframes (row 0 the new keyframe, rows
+    1..B its neighbours) with random fundamental matrices and epipoles: a
+    third of kf1's features bound (rows with no candidate; all of them with
+    bound_kf1) and a fifth of each neighbour's; in each neighbour, two equal
+    features on the line of each of a quarter of kf1's unbound features that
+    resemble it (a tie, which the lower column wins); neighbour 1 with every
+    feature near its epipole (no candidate column), neighbour 2 with a NaN F
+    (NaN lines), neighbour 3 with la = lb = 0 (den clamped to 1e-12, every
+    unbound far feature a candidate)."""
+    cfg = bench_config()
+    k = b + 1
+    obs = np.where(rng.random((k, n)) < 0.2, 5, -1).astype(np.int32)
+    obs[0] = np.where((np.arange(n) % 3 == 0) | bound_kf1, 7, -1)
+    xy = np.stack([rng.uniform(0, W, (k, n)), rng.uniform(0, H, (k, n))], -1)
+    desc = rng.integers(0, 2 ** 32, (k, n, 8), dtype=np.uint32)
+    F = rng.normal(0, 1e-3, (b, 3, 3)).astype(np.float32)
+    F[:, 2, 2] = rng.normal(0, 1, b)
+    epi = np.stack([rng.uniform(0, W, b), rng.uniform(0, H, b)], -1).astype(np.float32)
+    rows = np.flatnonzero(obs[0] < 0)[: n // 4]
+    x1 = xy[0, rows].astype(np.float32).astype(np.float64)
+    for j in range(b):
+        la, lb, lc = (F[j, r, 0] * x1[:, 0] + F[j, r, 1] * x1[:, 1] + F[j, r, 2] for r in range(3))
+        ok = np.abs(lb) > 1e-6
+        tgt = rng.permutation(n)[: 2 * len(rows)].reshape(2, -1)[:, ok]
+        x2 = rng.uniform(0, W, ok.sum())
+        y2 = -(la[ok] * x2 + lc[ok]) / lb[ok] + rng.normal(0, 0.3, ok.sum())
+        flips = rng.integers(0, 2 ** 32, (ok.sum(), 8), dtype=np.uint32) & \
+            rng.integers(0, 2 ** 32, (ok.sum(), 8), dtype=np.uint32)
+        for t in tgt:
+            xy[j + 1, t] = np.stack([x2, y2], -1)
+            desc[j + 1, t] = desc[0, rows[ok]] ^ flips
+    if b >= 3:
+        xy[1] = epi[0] + rng.uniform(-2, 2, (n, 2))
+        F[1] = np.nan
+        F[2, :2] = 0.0
+        F[2, 2] = (1e-9, 1e-9, 1e-7)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (t(obs), t(rng.random((k, n)) < 0.95), t(xy.astype(np.float32)),
+            t(desc.view(np.int32)), t(rng.integers(0, 8, (k, n)).astype(np.int32)),
+            torch.zeros((), dtype=torch.int64, device=dev),
+            torch.arange(1, b + 1, dtype=torch.int64, device=dev), t(F), t(epi),
+            tuple(cfg.level_sigma2), tuple(cfg.scale_factors))
 
 
 def _synthetic_ba(rng, q, o, c, dev, robust, drop_cam=None):
@@ -601,21 +676,21 @@ def map_parity(recorded, dev, errs):
     """K8, K9 and K5 (fusion's calls) against their twins: on the inputs
     two real keyframe events handed them (frames 3 and 6 of the recording
     run; local BA on 6) and on synthetic ones at full width with the
-    degenerate cases: rows with no candidate, every edge masked, a NaN
-    point."""
+    degenerate cases: rows with no candidate, no candidate column, NaN
+    lines, a clamped den, every edge masked, a NaN point."""
     rng = np.random.default_rng(1)
     cases = [(f"keyframe event {i + 1}", a) for i, a in enumerate(recorded["epi_match"])]
-    none = _synthetic_epi(rng, 10, 2048, dev)
-    cases += [("synthetic B=10 N=2048", _synthetic_epi(rng, 10, 2048, dev)),
-              ("synthetic, every kf1 feature bound", (none[0], torch.zeros_like(none[1]))
-               + none[2:])]
+    cases += [("synthetic B=10 N=2048, ties, no candidate column, NaN lines, den 1e-12",
+               _synthetic_epi(rng, 10, 2048, dev)),
+              ("synthetic, every kf1 feature bound", _synthetic_epi(rng, 10, 2048, dev, True)),
+              ("synthetic B=10 N=4096 (two column chunks)", _synthetic_epi(rng, 10, 4096, dev))]
     for what, args in cases:
-        got, want = cm.epi_best_two(*args), cm.epi_best_two_plain(*args)
+        got, want = cm.epi_match_keyframes(*args), cm.epi_match_keyframes_plain(*args)
         torch.cuda.synchronize()
         for name, a, b in zip(("best", "idx"), got, want):
             errs["epi_match"] = max(errs["epi_match"], _max_abs(a, b))
             _require_equal(f"epi_match {what} {name}", a, b)
-        log(f"[parity] epi_match {what} (B={args[2].shape[0]} x N={args[2].shape[1]}, "
+        log(f"[parity] epi_match {what} (B={args[6].shape[0]} x N={args[0].shape[1]}, "
             f"{int((got[0] < cm.BIG).sum())} rows with a candidate): bit-exact")
 
     ba = recorded["ba_edge@event"]
@@ -1124,18 +1199,29 @@ def _proj_match_bytes(args, cand):
             + 32 * int(cand.any(0).sum()) + 12 * p_valid.numel())
 
 
-def _epi_match_bytes(args, cands):
-    """The bytes K8's function must move: kf1's unbound mask and each
-    neighbour's unbound and far masks; each unbound kf1 feature's descriptor
-    and its line in every neighbour (12 bytes); each unbound far neighbour
-    feature's position and sigma (12); the descriptors of the neighbour
-    features that are a candidate; best and index out for every row.
-    `cands` holds each neighbour's (N, N) candidate mask."""
-    un1, la, un2, far = args[1], args[2], args[7], args[9]
-    b, n = la.shape
-    r = int(un1.sum())
-    return (n + 2 * b * n + 32 * r + 12 * b * r + 12 * int((un2 & far).sum())
-            + 32 * sum(int(c.any(0).sum()) for c in cands) + 8 * b * n)
+def _node_bytes(args, cand):
+    """The bytes K4's node form must move: each source's and target's node
+    and validity (5); the descriptors of the sources with a candidate and
+    of the targets that are one; best, index and second out for every
+    source. `cand` is the (N, M) candidate mask."""
+    n, m = args[1].shape[0], args[4].shape[0]
+    return 5 * (n + m) + 32 * int(cand.any(1).sum()) + 32 * int(cand.any(0).sum()) + 12 * n
+
+
+def _epi_match_bytes(args, rows, cands):
+    """The bytes K8's function must move, from the map's rows: kf1's and
+    each neighbour's row of the bound and valid masks (5 bytes a feature);
+    each unbound kf1 feature's position (8) and the descriptor of each that
+    has a candidate (32); each unbound neighbour feature's position and
+    octave (12) and the descriptor of each that is a candidate (32); each
+    neighbour's F, epipole and row (52), kf1's row (8); best and index out
+    for every row. `rows` is `cm.epi_rows(*args)`, `cands` each
+    neighbour's (N, N) candidate mask."""
+    un1, un2 = rows[1], rows[7]
+    b, n = un2.shape
+    has = torch.stack([c.any(1) for c in cands]).any(0) if cands else un1 & False
+    return (5 * n * (b + 1) + 8 * int(un1.sum()) + 32 * int(has.sum()) + 12 * int(un2.sum())
+            + 32 * sum(int(c.any(0).sum()) for c in cands) + 52 * b + 8 + 8 * b * n)
 
 
 def _ba_assemble_bytes(args):
@@ -1213,27 +1299,33 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
     taps = ext.pyramid_taps()
     dense_args = _dense_args(cfg, levels, ext)
     k4 = recorded["best_two"][0]
+    k4n = _synthetic_node(np.random.default_rng(3), 2048, 2048, 1, dev)
     k5 = recorded["proj_match"][0]
     k6 = recorded["pose_lm"][0]
     k7 = k6[:6] + (k6[6].to(torch.float32), True)
     k8 = recorded["epi_match"][-1]
     k9 = recorded["ba_edge@event"][0]
     # the bytes and operations each kernel's function needs on these inputs:
-    # the gates of K5 and K8 only on the pairs whose row and column masks
-    # hold (one mask test per row and per column), the Hamming distance only
-    # for the candidates (the data-dependent counts from the twins' masks);
-    # K3, K5, K8 and K9 count the bytes of `_*_bytes`, the rest every input
-    # once and every output once (K1: the image and its packed taps in, the
-    # levels 1.. out; K3: 512 x (4 products, 2 sums, 2 roundings) for the
-    # rotation and 1,024 for the samples and compares per keypoint)
-    n4 = int(k4[2].sum())
+    # the gates of K4, K5 and K8 only on the pairs whose row and column masks
+    # hold (one mask test per row and per column; K8 also its lines, 15 a
+    # row and neighbour, and its epipole test, 5 a feature), the Hamming
+    # distance only for the candidates (the data-dependent counts from the
+    # twins' masks); K3, K4, K5, K8 and K9 count the bytes of `_*_bytes`,
+    # the rest every input once and every output once (K1: the image and
+    # its packed taps in, the levels 1.. out; K3: 512 x (4 products, 2 sums,
+    # 2 roundings) for the rotation and 1,024 for the samples and compares
+    # per keypoint)
+    cand4 = cm.window_candidates(*k4[:5], *k4[6:10], k4[11])
+    n4, pairs4 = int(cand4.sum()), int(k4[4].sum()) * int(k4[9].sum())
+    cand4n = cm.node_candidates(k4n[0], k4n[2], k4n[3], k4n[5])
     cand5 = cm.projection_candidates(*k5[:5], *k5[6:10])
     n5 = int(cand5.sum())
     pairs5 = int(k5[4].sum()) * int(k5[9].sum())
-    cand8 = [cm.epi_candidates(k8[1], *(t[b] for t in k8[2:5]), *(t[b] for t in k8[6:]))
-             for b in range(k8[2].shape[0])]
+    rows8 = cm.epi_rows(*k8)
+    cand8 = [cm.epi_candidates(rows8[1], *(t[b] for t in rows8[2:5]),
+                               *(t[b] for t in rows8[6:])) for b in range(k8[6].shape[0])]
     n8 = sum(int(c.sum()) for c in cand8)
-    pairs8 = int(k8[1].sum()) * int((k8[7] & k8[9]).sum())
+    r8, pairs8 = int(rows8[1].sum()), int(rows8[1].sum()) * int((rows8[7] & rows8[9]).sum())
     e6, e9 = k6[2].shape[0], k9[5].numel()
     resize_ops = sum(3 * h * pw + 3 * h * w for (ph, pw), (h, w) in
                      zip([p.shape for p in pyr[:-1]], [p.shape for p in pyr[1:]]))
@@ -1249,9 +1341,11 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
                   f"(one launch)",
                   lambda: ce.brief_levels(*brief), lambda: ce.brief_levels_plain(*brief),
                   _brief_bytes(brief), (8 * 512 + 1024) * brief[1].shape[0]),
-        "best_two": (f"{k4[0].shape[0]}x{k4[1].shape[0]}, motion-model mask of frame 1",
-                     lambda: cm.masked_best_two(*k4), lambda: cm.masked_best_two_plain(*k4),
-                     k4, k4[2].numel() + 24 * n4),
+        "best_two": (f"{k4[0].shape[0]}x{k4[6].shape[0]}, the motion-model search of frame 1 "
+                     f"(gate and best-two, one launch)",
+                     lambda: cm.window_best_two(*k4), lambda: cm.window_best_two_plain(*k4),
+                     _proj_match_bytes(k4, cand4),
+                     k4[4].numel() + k4[9].numel() + 12 * pairs4 + 24 * n4),
         "proj_match": (f"{k5[0].shape[0]} local points x {k5[6].shape[0]} keypoints, frame 1",
                        lambda: cm.projection_best_two(*k5),
                        lambda: cm.projection_best_two_plain(*k5),
@@ -1261,10 +1355,13 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
                     lambda: cp.pose_lm_plain(*k6), k6, 44 * 250 * e6),
         "pose_normal_eqs": (f"E={e6}, frame 1", lambda: cp.pose_normal_eqs(*k7),
                             lambda: cp.pose_normal_eqs_plain(*k7), k7, 250 * e6),
-        "epi_match": (f"B={k8[2].shape[0]} x N={k8[2].shape[1]}, keyframe event",
-                      lambda: cm.epi_best_two(*k8), lambda: cm.epi_best_two_plain(*k8),
-                      _epi_match_bytes(k8, cand8),
-                      k8[1].numel() + k8[7].numel() + 9 * pairs8 + 24 * n8),
+        "epi_match": (f"B={k8[6].shape[0]} x N={k8[0].shape[1]}, the keyframe event's search "
+                      f"from the map's rows (one launch)",
+                      lambda: cm.epi_match_keyframes(*k8),
+                      lambda: cm.epi_match_keyframes_plain(*k8),
+                      _epi_match_bytes(k8, rows8, cand8),
+                      rows8[1].numel() + rows8[7].numel() + 15 * r8 * k8[6].shape[0]
+                      + 5 * int(rows8[7].sum()) + 9 * pairs8 + 24 * n8),
         "ba_edge": (f"the whole assembly (schur_ba._assemble), E={e9} ({k9[2].shape[0]} points "
                     f"x {k9[5].shape[1]}), C={k9[1].shape[0]}, keyframe event",
                     lambda: cb.ba_assemble(*k9), lambda: cb.ba_assemble_plain(*k9),
@@ -1313,6 +1410,20 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
         f"{fusion[6].shape[0]} keypoints): kernel {_event_ms(lambda: cm.projection_best_two(*fusion)):.4f}"
         f" ms, twin {_event_ms(lambda: cm.projection_best_two_plain(*fusion), 10):.4f} ms per call; "
         f"device time kernel {union_ms:.4f} ms (queued)")
+    node_ms, node_dev = _event_ms(lambda: cm.node_best_two(*k4n)), \
+        _queued_ms(lambda: cm.node_best_two(*k4n))
+    node_bound, node_by = _bound(_node_bytes(k4n, cand4n),
+                                 int((k4n[2] & (k4n[0] >= 0)).sum()) * k4n[3].shape[0]
+                                 + 24 * int(cand4n.sum()))
+    per_call["best_two"].update(node_2048_ms=node_ms, node_2048_device_ms=node_dev,
+                                node_2048_bound_ms=node_bound)
+    log(f"[timing] {card}: best_two node form at 2048x2048, every node 0 (the tracking "
+        f"fallback), synthetic: per call {node_ms:.4f} ms, device time {node_dev:.4f} ms "
+        f"(queued), twin {_event_ms(lambda: cm.node_best_two_plain(*k4n), 10):.4f} ms per "
+        f"call; bound {node_bound:.4f} ms by {node_by}")
+    if node_dev < node_bound:
+        raise AssertionError(f"best_two node form: device time {node_dev:.4f} ms below its "
+                             f"bound {node_bound:.4f} ms")
     tiles = _synthetic_proj_tiles(np.random.default_rng(2), dev)[0]
     cand_t = cm.projection_candidates(*tiles[:5], *tiles[6:10])
     t_ms, t_dev = _event_ms(lambda: cm.projection_best_two(*tiles)), \
@@ -1338,7 +1449,33 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
         f"the rotation's inputs: {table_bound:.4f} ms (this function: "
         f"{per_call['brief']['bound_ms']:.4f} ms)")
     per_call["pose_lm"]["split"] = k6_split(k6, card)
+    per_call["best_two"]["split"], per_call["epi_match"]["split"] = search_split(k4, k8, card)
     return per_call
+
+
+def search_split(k4, k8, card):
+    """K4's window form and K8 split on the queued clock by what their
+    inputs ask of them: K4 with every source invalid is the launch, the
+    staging and the sort of the targets alone; K8 with every kf1 feature
+    bound is the launch and the row compaction, with every neighbour feature
+    bound it adds the column compaction (no gate, no row)."""
+    no_rows = k4[:4] + (torch.zeros_like(k4[4]),) + k4[5:]
+    k4_split = {"staging_and_sort_ms": _queued_ms(lambda: cm.window_best_two(*no_rows)),
+                "whole_ms": _queued_ms(lambda: cm.window_best_two(*k4))}
+    bound1, bound2 = k8[0].clone(), k8[0].clone()
+    bound1.index_fill_(0, k8[5].reshape(1), 0)
+    bound2.index_fill_(0, k8[6], 0)
+    k8_split = {"rows_only_ms": _queued_ms(lambda: cm.epi_match_keyframes(bound1, *k8[1:])),
+                "rows_and_columns_ms": _queued_ms(lambda: cm.epi_match_keyframes(bound2,
+                                                                                 *k8[1:])),
+                "whole_ms": _queued_ms(lambda: cm.epi_match_keyframes(*k8))}
+    log(f"[timing] {card}: best_two window form split (device time, queued): every source "
+        f"invalid (launch, staging, sort) {k4_split['staging_and_sort_ms']:.4f} ms, the search "
+        f"{k4_split['whole_ms']:.4f} ms; epi_match split: every kf1 feature bound (launch, row "
+        f"compaction) {k8_split['rows_only_ms']:.4f} ms, every neighbour feature bound (+ the "
+        f"column compaction) {k8_split['rows_and_columns_ms']:.4f} ms, the search "
+        f"{k8_split['whole_ms']:.4f} ms")
+    return k4_split, k8_split
 
 
 def k6_split(k6, card):

@@ -45,8 +45,13 @@ SIGNATURES = {
     # n levels, blurs (n host pointers), dims (3n host ints), ys, xs, ca,
     # sa, points, out, stream
     "orb_brief_levels": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    # desc_a, n, desc_b, m, mask, best, idx, second, stream
-    "orb_best_two": (_P, _I, _P, _I, _P, _P, _P, _P, _P),
+    # uv, radius, src_level, src_ur, src_valid, src_desc, n, kp_xy, kp_level,
+    # kp_ur, kp_valid, kp_desc, m, dlo, dhi, best, idx, second, carry, stream
+    "orb_window_best_two": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _P, _P, _P, _P, _P),
+    # desc_a, node_a, valid_a, n, desc_b, node_b, valid_b, m, best, idx,
+    # second, stream
+    "orb_node_best_two": (_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P),
     # uv, radius, pred_level, p_ur, p_valid, p_desc, p, kp_xy, kp_level,
     # kp_ur, kp_valid, kp_desc, n, best, idx, second, carry, stream
     "orb_proj_match": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
@@ -59,9 +64,9 @@ SIGNATURES = {
     # mask, e, robust, out, stream
     "orb_pose_normal_eqs": (_P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _I, _I, _P,
                             _P),
-    # desc1, un1, la, lb, lc, desc2, xy2, un2, sig, far, n_nb, n, best, idx,
-    # stream
-    "orb_epi_match": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
+    # sigma2, scale (host float tables), levels, kf_obs, kf_feat_valid, kf_xy,
+    # kf_desc, kf_level, kf1, kf2, F, epipoles, n_nb, n, best, idx, stream
+    "orb_epi_match": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P),
     # fx, fy, cx, cy, bf, d2m, d2s, robust, poses, points, pt_valid, cam, obs,
     # inv_s2, stereo, mask, order, cam_start, Q, O, C, Hcc, bc, Hpp, bp, We,
     # pt_on, err, chi2, depth_ok, partial, err_pt, counters, stream

@@ -2,10 +2,10 @@
 `orb_slam2_tpu/ops/matching.py`, the searches tracking runs).
 
 ORBmatcher (`src/ORBmatcher.cc`) prunes its candidates with a feature grid
-and BoW buckets; here every search is one candidate mask, Hamming distances
-(XOR + popcount over 8 words) and a best / second-best reduction. The
-reductions run in the hand-written kernels of `cuda_match.py` on a CUDA
-tensor and in their plain twins on a CPU tensor.
+and BoW buckets; here every search is a candidate gate, Hamming distances
+(XOR + popcount over 8 words) and a best / second-best reduction, all three
+in one launch of a hand-written kernel of `cuda_match.py` on a CUDA tensor
+(its plain twin, which builds the gate as a dense mask, on a CPU tensor).
 
 Descriptors are the int32 view of the reference's uint32 words. Tie rules
 follow the reference: the lowest index wins an argmin, the lowest bin index
@@ -26,12 +26,6 @@ from .cuda_match import BIG, best_two, hamming_matrix, popcount32  # noqa: F401
 TH_HIGH = 100
 TH_LOW = 50
 HISTO_LENGTH = 30
-
-
-def fused_best_two(desc_a, desc_b, cand_mask):
-    """Hamming distances and the masked best / best index / second best in
-    one step: the K4 kernel on a CUDA tensor, its twin on a CPU tensor."""
-    return cuda_match.masked_best_two(desc_a, desc_b, cand_mask)
 
 
 def resolve_conflicts(best_idx, best_dist, accept, n_targets: int):
@@ -122,12 +116,6 @@ def search_by_projection_points(
     return Matches(best_idx, best, keep)
 
 
-def _stereo_gate(src_ur, kp_ur, radius):
-    return torch.where((src_ur[:, None] >= 0) & (kp_ur[None, :] >= 0),
-                       torch.abs(src_ur[:, None] - kp_ur[None, :]) < radius[:, None],
-                       torch.ones((), dtype=torch.bool, device=radius.device))
-
-
 def search_by_projection_frame(
     uv, src_level, src_desc, src_valid, src_angle, src_ur,
     kp_xy, kp_level, kp_desc, kp_valid, kp_angle, kp_ur,
@@ -137,20 +125,13 @@ def search_by_projection_frame(
     """Last-frame -> current-frame projection search of the motion model
     (`ORBmatcher::SearchByProjection(Frame&, Frame&, th, bMono)`,
     `src/ORBmatcher.cc:1741-1921`): window th * scale(source level), the
-    octave window of the forward/backward rule; the reduction is K4."""
+    octave range of the forward/backward rule; the gate and the reduction
+    are K4's window form."""
     radius = _radius(th, scale_factors, src_level)
-    win = (torch.abs(uv[:, None, 0] - kp_xy[None, :, 0]) < radius[:, None]) & \
-        (torch.abs(uv[:, None, 1] - kp_xy[None, :, 1]) < radius[:, None])
-    if forward:
-        lvl_ok = kp_level[None, :] >= src_level[:, None]
-    elif backward:
-        lvl_ok = kp_level[None, :] <= src_level[:, None]
-    else:
-        lvl_ok = (kp_level[None, :] >= src_level[:, None] - 1) & \
-            (kp_level[None, :] <= src_level[:, None] + 1)
-    cand = win & lvl_ok & _stereo_gate(src_ur, kp_ur, radius) & \
-        src_valid[:, None] & kp_valid[None, :]
-    best, best_idx, _ = fused_best_two(src_desc, kp_desc, cand)
+    octaves = (0, cuda_match.OPEN) if forward else (cuda_match.OPEN, 0) if backward else (-1, 1)
+    best, best_idx, _ = cuda_match.window_best_two(uv, radius, src_level, src_ur, src_valid,
+                                                   src_desc, kp_xy, kp_level, kp_ur, kp_valid,
+                                                   kp_desc, octaves)
     accept = (best <= TH_HIGH) & src_valid
     if check_rotation:
         accept = rotation_consistency(src_angle, kp_angle, accept, best_idx)
@@ -165,10 +146,10 @@ def search_by_node(
 ):
     """BoW-bucket matching (`ORBmatcher::SearchByBoW`,
     `src/ORBmatcher.cc:255-579`): the FeatureVector's node buckets become an
-    equality mask on per-feature vocabulary node ids; the reduction is K4."""
-    cand = (node_a[:, None] == node_b[None, :]) & (node_a[:, None] >= 0)
-    cand = cand & valid_a[:, None] & valid_b[None, :]
-    best, best_idx, second = fused_best_two(desc_a, desc_b, cand)
+    equality gate on per-feature vocabulary node ids; the gate and the
+    reduction are K4's node form."""
+    best, best_idx, second = cuda_match.node_best_two(node_a, desc_a, valid_a,
+                                                      node_b, desc_b, valid_b)
     accept = (best <= max_dist) & (best < nn_ratio * second) & valid_a
     if check_rotation:
         accept = rotation_consistency(angle_a, angle_b, accept, best_idx)

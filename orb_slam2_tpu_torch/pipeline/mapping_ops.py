@@ -171,34 +171,23 @@ def _rank(key):
 
 def _epi_match_batch(cfg: SlamConfig, m: mapstate.MapState, kf1, neighbor_ids):
     """Epipolar-gated Hamming match of kf1 against each covisible neighbour
-    in one K8 launch (its twin on the CPU): the epipolar lines in the XLA
-    path's form (`_triangulate_decide:204-220`), the unbound masks and the
-    epipole-distance gate are (B,N) vectors built here. Returns (best,
-    best_idx), (B,N) int32."""
+    in one K8 launch (its twin on the CPU): torch computes the fundamental
+    matrices, the epipoles and the neighbours' rows; the kernel gathers each
+    feature's line, masks and octave terms from the map's arrays in the XLA
+    path's form (`_triangulate_decide:204-220`). Returns (best, best_idx),
+    (B,N) int32."""
     cam = _camera(cfg, m.kf_pose.device)
     K = m.capacity_kf
     kf2 = torch.clamp(torch.clamp(neighbor_ids, min=0), 0, K - 1).long()
     T1 = mapstate.take(m.kf_pose, kf1)
     T2b = m.kf_pose[kf2]
     F = _fundamental_from_poses(cfg, T1, T2b)                    # (B,3,3)
-    xy1 = mapstate.take(m.kf_xy, kf1)
-    x1, y1 = xy1[None, :, 0], xy1[None, :, 1]
-    la, lb, lc = (x1 * F[:, r, 0, None] + y1 * F[:, r, 1, None] + F[:, r, 2, None]
-                  for r in range(3))
-    un1 = (mapstate.take(m.kf_obs, kf1) < 0) & mapstate.take(m.kf_feat_valid, kf1)
-    un2 = (m.kf_obs[kf2] < 0) & m.kf_feat_valid[kf2]
-    xy2 = m.kf_xy[kf2]
-    lvl2 = torch.clamp(m.kf_level[kf2], 0, cfg.n_levels - 1).long()
-    sig = 3.84 * device_table(tuple(cfg.level_sigma2), xy2.device)[lvl2]
-    O1 = se3.translation(se3.inverse(T1))
-    e2 = se3.apply(T2b, O1)                                      # (B,3)
+    e2 = se3.apply(T2b, se3.translation(se3.inverse(T1)))        # (B,3)
     ez = torch.clamp(e2[:, 2], min=1e-9)
-    ex = cam.fx * e2[:, 0] / ez + cam.cx
-    ey = cam.fy * e2[:, 1] / ez + cam.cy
-    dx, dy = xy2[..., 0] - ex[:, None], xy2[..., 1] - ey[:, None]
-    far = dx * dx + dy * dy >= 100.0 * device_table(tuple(cfg.scale_factors), xy2.device)[lvl2]
-    return cuda_match.epi_best_two(mapstate.take(m.kf_desc, kf1), un1, la, lb, lc,
-                                   m.kf_desc[kf2], xy2, un2, sig, far)
+    epipoles = torch.stack([cam.fx * e2[:, 0] / ez + cam.cx, cam.fy * e2[:, 1] / ez + cam.cy], -1)
+    return cuda_match.epi_match_keyframes(m.kf_obs, m.kf_feat_valid, m.kf_xy, m.kf_desc,
+                                          m.kf_level, kf1, kf2, F.contiguous(), epipoles,
+                                          tuple(cfg.level_sigma2), tuple(cfg.scale_factors))
 
 
 def _triangulate_decide(cfg: SlamConfig, m: mapstate.MapState, kf1, kf2, match,

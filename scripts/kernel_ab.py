@@ -10,13 +10,21 @@ Records, with this checkout's `chip_smoke.py`, the 31 frames of its
 sequence, what the extractor hands K3 on frame 0 (each level's blurred
 image, keypoints and angles) and the arguments the main path hands K5
 (frame 1's local-map search, fusion's union at the second keyframe event),
-K6 (frame 1's first pose solve) and local BA (the keyframe event of frame
-6), then times them in OTHER_CHECKOUT, this checkout, this checkout and
-OTHER_CHECKOUT again, each in a process of its own that imports the
-package, and builds the kernels, of the checkout under test. Device time is
-`chip_smoke._queued_ms` of that checkout (20 calls queued behind a sleeping
-kernel, timed by CUDA events); "per call" is `chip_smoke._event_ms` (CUDA
-events around back-to-back calls, the host's issue included). Timed:
+K6 (frame 1's first pose solve), local BA (the keyframe event of frame 6),
+`matching.search_by_projection_frame` (frame 1's motion-model search) and
+`mapping_ops._epi_match_batch` (the last keyframe event's epipolar search),
+and a synthetic `matching.search_by_node` set (2048 x 2048, every node 0 as
+on the tracking fallback), then times them in OTHER_CHECKOUT, this
+checkout, this checkout and OTHER_CHECKOUT again, each in a process of its
+own that imports the package, and builds the kernels, of the checkout under
+test. Device time is `chip_smoke._queued_ms` of that checkout (20 calls
+queued behind a sleeping kernel, timed by CUDA events); "per call" is
+`chip_smoke._event_ms` (CUDA events around back-to-back calls, the host's
+issue included). Timed:
+- the search units K4 and K8 serve, whatever kernels and torch glue each
+  checkout runs for them, with the profiler's device activities per call:
+  `search_by_projection_frame` and `search_by_node` (K4 and its gate) and
+  `_epi_match_batch` (K8, its gate and its per-feature glue);
 - K1 per call on frame 0 (one launch, or a launch per level in a checkout
   without `pack_pyramid_taps`), device time and per call;
 - K3 per frame over frame 0's 8 levels: one `brief_levels` launch from the
@@ -33,7 +41,7 @@ events around back-to-back calls, the host's issue included). Timed:
   then the 6x6 solve, the retract and the accept test), 2x0 - 1x0 one sweep
   (and a reclassification), and their difference the solve; K7; K5.
 Each run also saves its outputs: K1's levels, K3's words and K5's results on
-the recorded inputs, and each frame's Tcw and the final map of the 31-frame
+the recorded inputs, the three search units' results, and each frame's Tcw and the final map of the 31-frame
 sequence (`chip_smoke.run_sequence` on the kernel path); the summary says
 whether the two checkouts' outputs are equal bit for bit.
 Prints one JSON line per run and a summary; needs a CUDA card.
@@ -67,11 +75,12 @@ def _portable(x):
 def _on_card(x, dev):
     import torch
     from orb_slam2_tpu_torch.geometry.camera import Camera
+    from orb_slam2_tpu_torch.mapstate.map import MapState
     from orb_slam2_tpu_torch.solvers.schur_ba import BAProblem
     if isinstance(x, torch.Tensor):
         return x.to(dev)
     if isinstance(x, dict) and "__tuple__" in x:
-        kind = {"Camera": Camera, "BAProblem": BAProblem}[x["__tuple__"]]
+        kind = {"Camera": Camera, "BAProblem": BAProblem, "MapState": MapState}[x["__tuple__"]]
         return kind(**{k: _on_card(v, dev) for k, v in x["fields"].items()})
     if isinstance(x, tuple):
         return tuple(_on_card(v, dev) for v in x)
@@ -81,6 +90,7 @@ def _on_card(x, dev):
 
 
 def record(path):
+    import numpy as np
     import torch
     import chip_smoke as cs
     dev = torch.device("cuda", 0)
@@ -89,20 +99,37 @@ def record(path):
     uploads = [(torch.from_numpy(g).to(dev), torch.from_numpy(d).to(dev))
                for g, d in frames[:cs.N_RECORD]]
     recorded = {}
+    from orb_slam2_tpu_torch.ops import matching
+    from orb_slam2_tpu_torch.pipeline import mapping_ops
     from orb_slam2_tpu_torch.solvers import schur_ba
     solve_ba, ba = schur_ba.solve_ba, []
+    search, searches = matching.search_by_projection_frame, []
+    epi, epis = mapping_ops._epi_match_batch, []
 
     def record_ba(cam, prob, level_sigma2, *args, **kw):
         ba.append((cam, prob, tuple(level_sigma2)))
         return solve_ba(cam, prob, level_sigma2, *args, **kw)
 
-    schur_ba.solve_ba = record_ba
+    def record_search(*args, **kw):
+        searches.append((args, kw))
+        return search(*args, **kw)
+
+    def record_epi(cfg, m, kf1, neighbor_ids):
+        epis.append((m, kf1, neighbor_ids))
+        return epi(cfg, m, kf1, neighbor_ids)
+
+    schur_ba.solve_ba, matching.search_by_projection_frame = record_ba, record_search
+    mapping_ops._epi_match_batch = record_epi
     try:
         with cs.twins(), cs.recording(recorded):
             cs.run_sequence(cfg, uploads)
     finally:
-        schur_ba.solve_ba = solve_ba
+        schur_ba.solve_ba, matching.search_by_projection_frame = solve_ba, search
+        mapping_ops._epi_match_batch = epi
     torch.cuda.synchronize()
+    node = cs._synthetic_node(np.random.default_rng(3), 2048, 2048, 1, dev)
+    angles = torch.from_numpy(np.random.default_rng(4).uniform(0, 360, (2, 2048))
+                              .astype(np.float32)).to(dev)
     from orb_slam2_tpu_torch.ops import orient_brief
     img = torch.from_numpy(frames[0][0]).to(dev).to(torch.float32)
     levels = cs.kernel_inputs(cfg, img, dev)[2]
@@ -110,7 +137,10 @@ def record(path):
                           "fusion": recorded["proj_match@event"][-1], "ba": ba[-1],
                           "frames": [(torch.from_numpy(g), torch.from_numpy(d)) for g, d in frames],
                           "brief": [lv[1:] for lv in levels],
-                          "points": torch.as_tensor(orient_brief.brief_points())}), path)
+                          "points": torch.as_tensor(orient_brief.brief_points()),
+                          "motion_search": searches[0], "epi": epis[-1],
+                          "node_search": node[:3] + (angles[0],) + node[3:] + (angles[1],)}),
+               path)
 
 
 def time_kernels(path, label, out_path):
@@ -138,6 +168,7 @@ def time_kernels(path, label, out_path):
     res.update(_brief_frame(rec["brief"], rec["points"], cs, outputs))
     res.update(_dense_frame(frame0, cs, dev))
     res.update(_assemble(*rec["ba"], cs))
+    res.update(_search_units(rec, cs, outputs))
     results, _, _, _, events = cs.run_sequence(cs.bench_config(), rec["frames"])
     outputs["sequence_tcw"] = torch.stack([r.Tcw for r in results])
     outputs["sequence_map"] = events[-1]["m"]._asdict()
@@ -228,6 +259,70 @@ def _assemble(cam, prob, level_sigma2, cs):
             "assemble_shape": [*prob.obs_cam.shape, C]}
 
 
+def _search_units(rec, cs, outputs):
+    """The units K4 and K8 serve, as the checkout runs them: frame 1's
+    motion-model search, the synthetic BoW-node search and the last event's
+    epipolar search; queued device time, per call, and the profiler's device
+    time and activities per call (this process is fresh)."""
+    from orb_slam2_tpu_torch.ops import matching
+    from orb_slam2_tpu_torch.pipeline import mapping_ops
+    (args, kw), (m, kf1, nb), node = rec["motion_search"], rec["epi"], rec["node_search"]
+    cfg = cs.bench_config()
+    units = {"motion_search": lambda: matching.search_by_projection_frame(*args, **kw),
+             "node_search": lambda: matching.search_by_node(*node, nn_ratio=0.7),
+             "epi_match_batch": lambda: mapping_ops._epi_match_batch(cfg, m, kf1, nb)}
+    res = {}
+    for name, fn in units.items():
+        outputs[name] = fn()
+        syncs, issue_ms, top = _host_side(fn)
+        # 4 calls queued: a unit issues up to ~80 kernels a call, and the
+        # device's launch queue must not fill behind the sleeping kernel
+        queued = None if syncs else cs._queued_ms(fn, 4)
+        prof_ms, n_act = cs._device_ms(fn, 10)
+        res.update({f"{name}_ms": queued, f"{name}_call_ms": cs._event_ms(fn),
+                    f"{name}_profiler_ms": prof_ms, f"{name}_device_activities": n_act,
+                    f"{name}_host_syncs": syncs, f"{name}_issue_ms": issue_ms,
+                    f"{name}_host_top": top})
+    return res
+
+
+def _host_side(fn):
+    """What one call of fn costs the host: the source lines at which it waits
+    for the card (torch's sync debug mode), the host time to issue it
+    (mean of 5 calls, no wait), and the 5 functions of the longest own time
+    in one call (cProfile)."""
+    import cProfile
+    import pstats
+    import time
+    import warnings
+    import torch
+    for _ in range(2):                     # the second call: the first may set up torch.cuda
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    syncs = sorted({f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message)})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fn()
+    issue_ms = (time.perf_counter() - t0) * 200
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.runcall(fn)
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).sort_stats("tottime")
+    top = [f"{os.path.basename(f)}:{ln} {fn_name} {st[2] * 1e3:.2f} ms"
+           for (f, ln, fn_name), st in list(stats.stats.items())]
+    top = sorted(top, key=lambda t: -float(t.split()[-2]))[:5]
+    return syncs, issue_ms, top
+
+
 def _same_outputs(a, b):
     """Per output, whether two runs' saved outputs are equal bit for bit."""
     import torch
@@ -289,7 +384,8 @@ def main():
     # each kernel's lesser time of its two runs per checkout
     summary = {"card": card, "runs": runs, "best_of_two": {
         lab: {k: min(r[k] for r in runs if r["label"] == lab)
-              for k in next(r for r in runs if r["label"] == lab) if k.endswith("_ms")}
+              for k, v in next(r for r in runs if r["label"] == lab).items()
+              if k.endswith("_ms") and v is not None}
         for lab in ("other", "this")}}
     for lab, t in summary["best_of_two"].items():
         it = (t["pose_lm_1x10_ms"] - t["pose_lm_1x0_ms"]) / 10

@@ -100,8 +100,38 @@ def test_epi_best_two_twin_matches_reference(seed):
 
 
 def test_epi_best_two_cpu_wrapper_is_the_twin():
-    a = _inputs(5)
-    t = [torch.from_numpy(np.ascontiguousarray(v.view(np.int32) if v.dtype == np.uint32
-                                               else v)) for v in a.values()]
-    for g, w in zip(cuda_match.epi_best_two(*t), cuda_match.epi_best_two_plain(*t)):
+    """The event's K8 wrapper (`epi_match_keyframes`) on CPU tensors runs its
+    twin, whose search is `epi_best_two_plain` on the rows it gathers from
+    the map: kf1's row, each neighbour's row, lines F [x1; 1]."""
+    rng = np.random.default_rng(5)
+    k, levels = 4, 8
+    obs = np.where(rng.random((k, N)) < 0.5, -1, rng.integers(0, 100, (k, N))).astype(np.int32)
+    xy = np.stack([rng.uniform(0, 640, (k, N)), rng.uniform(0, 480, (k, N))], -1)
+    desc = rng.integers(0, 2 ** 32, (k, N, 8), dtype=np.uint32).view(np.int32)
+    level = rng.integers(-1, levels + 1, (k, N)).astype(np.int32)
+    f = rng.normal(0, 1e-3, (3, 3, 3)).astype(np.float32)
+    f[..., 2, 2] = rng.normal(0, 1, 3)
+    epi = rng.uniform(0, 640, (3, 2)).astype(np.float32)
+    sig2 = tuple(1.2 ** (2 * i) for i in range(levels))
+    sf = tuple(1.2 ** i for i in range(levels))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    args = (t(obs), t(rng.random((k, N)) < 0.9), t(xy.astype(np.float32)), t(desc), t(level),
+            torch.tensor(2), torch.tensor([0, 3, 1]), t(f), t(epi), sig2, sf)
+    got = cuda_match.epi_match_keyframes(*args)
+    want = cuda_match.epi_match_keyframes_plain(*args)
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
+    x1 = args[2][2]
+    line = [t(f)[:, r, 0, None] * x1[None, :, 0] + t(f)[:, r, 1, None] * x1[None, :, 1]
+            + t(f)[:, r, 2, None] for r in range(3)]
+    kf2 = args[6]
+    lvl = torch.clamp(args[4][kf2], 0, levels - 1).long()
+    d = args[2][kf2] - t(epi)[:, None, :]
+    rows = cuda_match.epi_best_two_plain(
+        args[3][2], (args[0][2] < 0) & args[1][2], *line, args[3][kf2], args[2][kf2],
+        (args[0][kf2] < 0) & args[1][kf2], 3.84 * torch.tensor(sig2, dtype=torch.float32)[lvl],
+        d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+        >= 100.0 * torch.tensor(sf, dtype=torch.float32)[lvl])
+    for g, w in zip(got, rows):
+        assert torch.equal(g, w)
+    assert int((got[0] < cuda_match.BIG).sum()) > 10

@@ -12,12 +12,16 @@ order, and the matching kernels decide integers by exact compares, so those
 comparisons are bit-exact. The pose kernels sum the edges in another order
 than their twins: K6 is held to Tcw within 1e-4 and equal inlier sets except
 at the chi2 threshold, K7 to the reference's own tolerance between its XLA
-and Pallas builds (H rtol 3e-4 atol 2e-3, b atol 2e-2). K8 decides integers
-from float32 values rounded as in its twin: bit-exact. K9 (the whole BA
+and Pallas builds (H rtol 3e-4 atol 2e-3, b atol 2e-2). K4 (both gates)
+and K8 (from the map's rows) decide integers from float32 values rounded as
+in their twins: bit-exact. K9 (the whole BA
 assembly) performs its twin's per-edge float32 operations and sums in the
 same order: every field of `schur_ba.Lin` bit-exact, NaN where the twin has
 NaN.
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -37,6 +41,9 @@ from orb_slam2_tpu_torch.pipeline import mapping_ops, tracking_step
 from orb_slam2_tpu_torch.solvers import schur_ba
 from orb_slam2_tpu_torch.utils.config import SlamConfig, SENSOR_RGBD
 from orb_slam2_tpu_torch.utils.synthetic import PlateWorld, loop_trajectory
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import _synthetic_epi, _synthetic_node, _synthetic_proj_tiles  # noqa: E402
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -270,19 +277,56 @@ def _desc(rng, n, dev):
 
 @pytest.mark.parametrize("n,m,density", [(2048, 2048, 0.02), (130, 257, 0.5), (7, 1, 1.0)])
 def test_best_two_kernel_bit_exact(cuda, n, m, density):
-    rng = np.random.default_rng(n + m)
-    a, b = _desc(rng, n, cuda), _desc(rng, m, cuda)
-    b[: min(n, m) // 2] = a[: min(n, m) // 2] ^ 0x00010001     # near duplicates
-    mask = torch.from_numpy(rng.random((n, m)) < density).to(cuda)
-    mask[::13] = False                                        # rows masked everywhere
+    """K4's node form: vocabulary nodes giving about this density of
+    candidates (density 1: every node 0, the tracking fallback), invalid
+    features, sources with node -1, near duplicates and ties."""
+    args = _synthetic_node(np.random.default_rng(n + m), n, m, round(1 / density), cuda)
     before = launch.LAUNCHES["best_two"]
-    got = cm.masked_best_two(a, b, mask)
-    want = cm.masked_best_two_plain(a, b, mask)
+    got = cm.node_best_two(*args)
+    want = cm.node_best_two_plain(*args)
     torch.cuda.synchronize()
     assert launch.LAUNCHES["best_two"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert int(got[0][0]) == cm.BIG and int(got[1][0]) == 0
+    assert int((got[0] < cm.BIG).sum()) > 0
+    assert bool((got[0][~args[2]] == cm.BIG).all()) and bool((got[1][~args[2]] == 0).all())
+
+
+@pytest.mark.parametrize("rule", [(-1, 1), (0, cm.OPEN), (cm.OPEN, 0)])
+def test_window_best_two_kernel_bit_exact(cuda, rule):
+    """K4's window form at 2048 x 2048 under each octave rule (neither,
+    forward, backward), with empty rows (radius 0) and forced ties: bit-exact
+    against the twin, one launch."""
+    args, expect = _synthetic_proj_tiles(np.random.default_rng(11), cuda, p=2048, n=2048)
+    args[1][100::9] = 0.0
+    args = args + (rule,)
+    before = launch.LAUNCHES["best_two"]
+    got = cm.window_best_two(*args)
+    want = cm.window_best_two_plain(*args)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["best_two"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for row, triple in expect.items():
+        assert tuple(int(t[row]) for t in got) == triple, row
+    assert not bool((got[0][100::9] < cm.BIG).any()) and int((got[0] < 100).sum()) > 500
+
+
+@pytest.mark.parametrize("m", [cm.PROJ_TILE + 1, 2 * cm.PROJ_TILE])
+def test_window_best_two_kernel_above_one_tile(cuda, m):
+    """K4's window form past one tile of staged targets (M = 8193: a last
+    tile of one; 16,384: two full tiles), best and second in different
+    tiles, empty rows: bit-exact against the twin; no cap on M."""
+    args, expect = _synthetic_proj_tiles(np.random.default_rng(m), cuda, p=2048, n=m)
+    args[1][100::9] = 0.0
+    args = args + ((-1, 1),)
+    got = cm.window_best_two(*args)
+    want = cm.window_best_two_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for row, triple in expect.items():
+        assert tuple(int(t[row]) for t in got) == triple, row
 
 
 def _proj_inputs(rng, p, n, dev):
@@ -565,7 +609,8 @@ def test_tracking_step_kernel_path_equals_twin_path(cuda, monkeypatch):
     for name, twin in (("pyramid", ce.pyramid_plain),
                        ("dense_stage_levels", ce.dense_stage_levels_plain),
                        ("brief_levels", ce.brief_levels_plain),
-                       ("masked_best_two", cm.masked_best_two_plain),
+                       ("window_best_two", cm.window_best_two_plain),
+                       ("node_best_two", cm.node_best_two_plain),
                        ("projection_best_two", cm.projection_best_two_plain),
                        ("pose_lm", cp.pose_lm_plain)):
         monkeypatch.setattr(ce if name in ("pyramid", "dense_stage_levels", "brief_levels") else
@@ -580,40 +625,25 @@ def test_tracking_step_kernel_path_equals_twin_path(cuda, monkeypatch):
         assert float((g.matched_pt == w.matched_pt).float().mean()) >= 0.99
 
 
-def _epi_inputs(rng, b, n, dev):
-    """K8's arguments: each row's epipolar line passes near one target that
-    resembles it; every third kf1 feature bound (no candidate)."""
-    desc1 = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
-    desc2 = rng.integers(0, 2 ** 32, (b, n, 8), dtype=np.uint32)
-    flips = rng.integers(0, 2 ** 32, (b, n, 8), dtype=np.uint32) & \
-        rng.integers(0, 2 ** 32, (b, n, 8), dtype=np.uint32)
-    j0 = rng.integers(0, n, (b, n))
-    for k in range(b):
-        desc2[k, j0[k]] = desc1 ^ flips[k]
-    xy2 = np.stack([rng.uniform(0, 640, (b, n)), rng.uniform(0, 480, (b, n))], -1)
-    x0, y0 = (np.take_along_axis(xy2[..., c], j0, 1) for c in (0, 1))
-    ang, scale = rng.uniform(0, np.pi, (b, n)), rng.uniform(1e-3, 10.0, (b, n))
-    la, lb = np.cos(ang) * scale, np.sin(ang) * scale
-    lc = -(la * x0 + lb * y0) + rng.normal(0, 1.5, (b, n)) * scale
-    t = lambda a, dt=np.float32: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
-    return (t(desc1.view(np.int32), np.int32), t(np.arange(n) % 3 != 0, bool), t(la), t(lb),
-            t(lc), t(desc2.view(np.int32), np.int32), t(xy2), t(rng.random((b, n)) < 0.8, bool),
-            t(3.84 * 1.44 ** rng.integers(0, 8, (b, n))), t(rng.random((b, n)) < 0.9, bool))
-
-
-@pytest.mark.parametrize("b,n", [(10, 2048), (3, 256), (2, 1)])
+@pytest.mark.parametrize("b,n", [(10, 2048), (1, 256), (0, 64), (10, 4096)])
 def test_epi_match_kernel_bit_exact(cuda, b, n):
-    args = _epi_inputs(np.random.default_rng(n), b, n, cuda)
-    cases = [args, (args[0], torch.zeros_like(args[1])) + args[2:],          # no candidate
-             args[:9] + (torch.zeros_like(args[9]),)]                        # all near epipoles
-    for a in cases:
+    """K8 from the map's rows: ties, a neighbour with no candidate column,
+    NaN lines and a clamped den (B >= 3), a map whose kf1 has no unbound
+    feature; B = 0 (no launch), 1 and 10; N = 4096 (two column chunks):
+    bit-exact against the twin."""
+    rng = np.random.default_rng(n + b)
+    for args in (_synthetic_epi(rng, b, n, cuda), _synthetic_epi(rng, b, n, cuda, True)):
         before = launch.LAUNCHES["epi_match"]
-        got, want = cm.epi_best_two(*a), cm.epi_best_two_plain(*a)
+        got, want = cm.epi_match_keyframes(*args), cm.epi_match_keyframes_plain(*args)
         torch.cuda.synchronize()
-        assert launch.LAUNCHES["epi_match"] == before + 1
+        assert launch.LAUNCHES["epi_match"] == before + (b > 0)
         for g, w in zip(got, want):
-            assert torch.equal(g, w)
-    assert int((cm.epi_best_two(*args)[0] < cm.BIG).sum()) > 0 or n == 1
+            assert g.shape == (b, n) and torch.equal(g, w)
+    args = _synthetic_epi(rng, b, n, cuda)
+    hits = cm.epi_match_keyframes(*args)[0] < cm.BIG
+    assert b == 0 or int(hits.sum()) > 0
+    if b >= 3:
+        assert not bool(hits[0].any()) and not bool(hits[1].any()) and int(hits[2].sum()) > 0
 
 
 def _ba_problem(rng, q, o, c, dev, drop_cam=None):
@@ -769,9 +799,10 @@ def test_keyframe_pass_kernel_path_equals_twin_path(cuda, monkeypatch):
     for mod, name, twin in ((ce, "pyramid", ce.pyramid_plain),
                             (ce, "dense_stage_levels", ce.dense_stage_levels_plain),
                             (ce, "brief_levels", ce.brief_levels_plain),
-                            (cm, "masked_best_two", cm.masked_best_two_plain),
+                            (cm, "window_best_two", cm.window_best_two_plain),
+                            (cm, "node_best_two", cm.node_best_two_plain),
                             (cm, "projection_best_two", cm.projection_best_two_plain),
-                            (cm, "epi_best_two", cm.epi_best_two_plain),
+                            (cm, "epi_match_keyframes", cm.epi_match_keyframes_plain),
                             (cp, "pose_lm", cp.pose_lm_plain),
                             (cb, "ba_assemble", cb.ba_assemble_plain)):
         monkeypatch.setattr(mod, name, twin)

@@ -105,8 +105,8 @@ def test_rotation_consistency_with_tied_bins(counts):
 
 
 class TestMaskedBestTwoTwin:
-    """The K4 twin against the Pallas kernel (interpret mode) and the XLA
-    path (after tests/test_pallas_kernels.py:9-36)."""
+    """The spec of K4's reduction against the Pallas kernel (interpret
+    mode) and the XLA path (after tests/test_pallas_kernels.py:9-36)."""
 
     def _check(self, rng, n, m, density):
         a, b = _desc(rng, n), _desc(rng, m)
@@ -117,7 +117,7 @@ class TestMaskedBestTwoTwin:
                                                 jnp.asarray(mask), interpret=True)
         want_xla = jm.best_two(jm.hamming_matrix(jnp.asarray(a), jnp.asarray(b)),
                                jnp.asarray(mask))
-        got = cm.masked_best_two(_t(a), _t(b), _t(mask))
+        got = cm.masked_best_two_plain(_t(a), _t(b), _t(mask))
         for g, wp, wx in zip(got, want_pallas, want_xla):
             assert g.dtype == torch.int32
             _eq(g, wp)
@@ -244,7 +244,17 @@ def test_cpu_tensors_run_the_twins_without_launching():
     rng = np.random.default_rng(7)
     launch.reset_launches()
     a, b = _t(_desc(rng, 8)), _t(_desc(rng, 9))
-    cm.masked_best_two(a, b, torch.ones((8, 9), dtype=torch.bool))
+    node_a, node_b = torch.zeros(8, dtype=torch.int32), torch.zeros(9, dtype=torch.int32)
+    ok_a, ok_b = torch.ones(8, dtype=torch.bool), torch.ones(9, dtype=torch.bool)
+    got = cm.node_best_two(node_a, a, ok_a, node_b, b, ok_b)
+    want = cm.masked_best_two_plain(a, b, torch.ones((8, 9), dtype=torch.bool))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    xy = torch.zeros((9, 2))
+    window = (xy[:8], torch.full((8,), 5.0), node_a, -ok_a.float(), ok_a, a,
+              xy, node_b, -ok_b.float(), ok_b, b, (-1, 1))
+    got = cm.window_best_two(*window)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert not any(launch.LAUNCHES.values())
     with pytest.raises(ValueError):
-        cm.masked_best_two(a.to("meta"), b.to("meta"), torch.ones((8, 9), dtype=torch.bool))
+        cm.node_best_two(node_a.to("meta"), a.to("meta"), ok_a.to("meta"), node_b.to("meta"),
+                         b.to("meta"), ok_b.to("meta"))
