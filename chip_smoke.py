@@ -14,7 +14,8 @@ Phases (each prints its result; any failure exits non-zero):
                640x480 (each in its one launch over the pyramid), K4 (the
                motion-model search with its gate, and the BoW-node form),
                K5, K8 (the event's search from the map's rows) and every
-               field of the K9 assembly bit-exact, K6/K7 within tolerance;
+               field of the K9 assembly bit-exact, K6/K7 (one cluster of 8
+               CTAs each) within tolerance;
                on the inputs the main path hands them on real frames and
                keyframe events (K5 also on fusion's), and on synthetic ones
                with degenerate cases (K4 under each octave rule and past
@@ -36,7 +37,21 @@ Phases (each prints its result; any failure exits non-zero):
                giving the same poses and map bit for bit; a run with every
                kernel but K6/K7 on its twin giving the kernel path's, bit for
                bit; the whole sequence against the twin path;
-5. timing    — median ms per frame of the front end and of the tracking
+5. system    — the port's entry point as a user calls it: SlamSystem
+               (`pipeline/system.py`, loop closing off, synth_vocabulary(10,
+               6) on the card, the natural keyframe policy) over the same 31
+               frames as host arrays: a synchronous lap, a kidnap (state
+               LOST, then the render of pose 12 must relocalize within 5 cm:
+               BoW candidates, K4's node form, EPnP RANSAC, K6, and K4's
+               window form in the rescue rounds), a fresh system streaming
+               at depth 3 and its flush, save_tum / load_tum. Checked against
+               the JAX reference's SlamSystem on the same frames: every
+               frame's state, the keyframe frames within 2, the ATE within 2x
+               + 1 cm (the stream's also within max(3x the sync lap's, 3
+               cm)), a finite map; every kernel but K7 launched. Timed: the
+               median ms per track_rgbd (frames with and without a keyframe
+               apart), the stream's frames per second, the relocalization;
+6. timing    — median ms per frame of the front end and of the tracking
                step, and per keyframe event, on the kernel path and the twin
                path, device time and idle share, and each kernel against its
                twin at the main path's shapes, beside its bound (the bytes
@@ -47,7 +62,8 @@ Phases (each prints its result; any failure exits non-zero):
                and its node form at 2048 x 2048, K5 at fusion's union and
                at N = 16,384, K8 as the event's search unit, K6 split by
                its schedule (1x0, 2x0, 1x10, 4x10).
-The second-to-last line is the kernels' JSON record; the last line is
+The second-to-last line is the kernels' JSON record (K4's two forms apart:
+best_two the window form, best_two_node the node form); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import itertools
@@ -69,6 +85,7 @@ import numpy as np
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import torch
 
+from orb_slam2_tpu_torch.bow.vocabulary import synth_vocabulary
 from orb_slam2_tpu_torch.geometry import se3
 from orb_slam2_tpu_torch.geometry.camera import Camera
 from orb_slam2_tpu_torch.mapstate import map as mapstate
@@ -79,9 +96,10 @@ from orb_slam2_tpu_torch.ops import cuda_match as cm
 from orb_slam2_tpu_torch.ops import cuda_pose as cp
 from orb_slam2_tpu_torch.ops import extractor as ex
 from orb_slam2_tpu_torch.ops import orient_brief, select
-from orb_slam2_tpu_torch.pipeline import mapping_ops, tracking_step
+from orb_slam2_tpu_torch.pipeline import mapping_ops, system, tracking_step
 from orb_slam2_tpu_torch.pipeline.frame import make_frame_rgbd
 from orb_slam2_tpu_torch.solvers import schur_ba
+from orb_slam2_tpu_torch.utils import trajectory
 from orb_slam2_tpu_torch.utils.config import SlamConfig, SENSOR_RGBD
 from orb_slam2_tpu_torch.utils.synthetic import PlateWorld, loop_trajectory
 
@@ -98,6 +116,15 @@ REFERENCE_TRANS_ERR_M = [             # camera-centre error vs ground truth (m),
     0.00326, 0.00239, 0.00328, 0.00421, 0.00403, 0.00389, 0.00835, 0.00378, 0.00611, 0.00197,
     0.00299, 0.01011, 0.02443, 0.02128, 0.02158, 0.03221, 0.03416, 0.0348, 0.03009, 0.03335,
     0.03077, 0.03138, 0.02937, 0.03004, 0.01985, 0.02094, 0.02213, 0.02454, 0.02672, 0.02652]
+# The reference SlamSystem (loop closing off, synth_vocabulary(10, 6), the
+# natural keyframe policy) over the same frames, by the same script: the
+# state after every call (1 = OK), the keyframe frames and ATE of the
+# synchronous lap and of the stream at depth 3, and the kidnap's
+# relocalized keyframe and camera-centre error.
+REFERENCE_SYSTEM = {
+    "sync_states": [1] * 31, "sync_kf_frames": [8, 9, 12, 15, 19, 26], "sync_ate_m": 0.011371,
+    "kidnap_kf": 3, "kidnap_err_m": 0.014985, "stream_states": [1] * 31,
+    "stream_kf_frames": [11, 15, 25], "stream_ate_m": 0.017852}
 # per keyframe event (frames 3, 6, ..., 30): points triangulated, points
 # replaced by fusion, BA outlier observations erased, keyframes culled, then
 # valid points and valid keyframes after the event
@@ -127,8 +154,13 @@ N_FRONT = 12                # frames of the front-end checks
 N_FRAMES = 31               # frames of the sequence (10 keyframe events)
 KF_EVERY = 3                # a keyframe forced on every 3rd frame (bench.py:118-124)
 N_RECORD = 7                # frames of the recording run (events at 3 and 6, BA on 6)
+KIDNAP_POSE = 12            # the [system] phase's kidnap: the render of this mapped pose
+STREAM_DEPTH = 3            # the [system] phase's stream lap (bench.py's default depth)
+SYSTEM_KF_SLACK = 2         # frames a keyframe may move from the reference's: the maps part
+                            # by <= 0.23 cm from the forced run's event 6 on (K6's float32 sums)
 POSE_TOL = 1e-4             # K6 against its twin, per entry of Tcw
 FX, W, H = 517.3, 640, 480
+ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM: 3.35 TB/s
 FP32_OPS_PER_MS = 67e9      # H100 SXM: 67 TFLOP/s float32 outside the tensor cores
 SOURCES = {   # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
@@ -140,6 +172,8 @@ SOURCES = {   # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
               "orb_slam2_tpu/ops/pallas_extract.py:360"),
     "best_two": ("orb_slam2_tpu_torch/csrc/best_two.cu",
                  "orb_slam2_tpu/ops/pallas_kernels.py:74"),
+    "best_two_node": ("orb_slam2_tpu_torch/csrc/best_two.cu",
+                      "orb_slam2_tpu/ops/pallas_kernels.py:74"),
     "proj_match": ("orb_slam2_tpu_torch/csrc/proj_match.cu",
                    "orb_slam2_tpu/ops/pallas_kernels.py:174"),
     "pose_lm": ("orb_slam2_tpu_torch/csrc/pose_lm.cu",
@@ -151,7 +185,7 @@ SOURCES = {   # kernel: (CUDA source, the TPU kernel's pallas_call it replaces)
     "ba_edge": ("orb_slam2_tpu_torch/csrc/ba_edge.cu",
                 "orb_slam2_tpu/ops/pallas_kernels.py:466"),
 }
-WRAPPERS = {  # kernel (K4's node form: best_two_node): (module, wrapper, twin)
+WRAPPERS = {  # kernel (K4's two forms apart): (module, wrapper, twin)
     "pyramid": (ce, "pyramid", ce.pyramid_plain),
     "dense_stage": (ce, "dense_stage_levels", ce.dense_stage_levels_plain),
     "brief": (ce, "brief_levels", ce.brief_levels_plain),
@@ -450,7 +484,7 @@ def match_pose_parity(recorded, dev, errs):
         got, want = cm.node_best_two(*args), cm.node_best_two_plain(*args)
         torch.cuda.synchronize()
         for name, a, b in zip(("best", "idx", "second"), got, want):
-            errs["best_two"] = max(errs["best_two"], _max_abs(a, b))
+            errs["best_two_node"] = max(errs["best_two_node"], _max_abs(a, b))
             _require_equal(f"best_two node form, {what} {name}", a, b)
         log(f"[parity] best_two node form, {what} ({args[1].shape[0]}x{args[4].shape[0]}, "
             f"{int((got[0] < cm.BIG).sum())} rows with a candidate): bit-exact")
@@ -741,22 +775,11 @@ def map_parity(recorded, dev, errs):
             f"keypoints, {int((got[0] < cm.BIG).sum())} with a candidate): bit-exact")
 
 
-def _last_points(cfg, m, f, Tcw, matched):
-    """The next frame's 3D points after a keyframe (SlamSystem._set_last,
-    orb_slam2_tpu/pipeline/system.py:354-380): the bound map points and the
-    close-depth points of the unbound keypoints."""
-    P = m.capacity_pt
-    idx = torch.clamp(matched, 0, P - 1).long()
-    has = (matched >= 0) & m.pt_valid[idx]
-    pw = se3.apply(se3.inverse(Tcw), mapping_ops.unproject(cfg, f))
-    temporal = (f.depth > 0) & (f.depth < cfg.th_depth * cfg.baseline) & ~has & f.valid
-    return torch.where(temporal[:, None], pw, m.pt_pos[idx]), has | temporal
-
-
 def run_sequence(cfg, uploads, count_syncs=False):
     """Initialization on frame 0, then frames 1.. through the tracking step
     with a keyframe event (keyframe_pass) forced on every KF_EVERY-th frame,
-    chaining the state as SlamSystem._set_last/_track_frame do. Returns the
+    chaining the state as SlamSystem._set_last/_track_frame do (the
+    keyframe's next points by `system.last_points`, as `_set_last`). Returns the
     step results, the inputs of each step (for re-timing), the host syncs
     per frame and the source lines that synced (with count_syncs), and one
     record per keyframe event: its frame, inputs, summary (on the card), map
@@ -770,7 +793,7 @@ def run_sequence(cfg, uploads, count_syncs=False):
                                         torch.full((N,), -1, dtype=torch.int32, device=dev),
                                         0, 0.0, all_depth=True)
     lm = mapstate.take(m.kf_obs, kf)
-    lp, lpv = _last_points(cfg, m, f0, eye, lm)
+    lp, lpv = system.last_points(cfg, m, f0, eye, lm)
     last, T_last, vel, has_vel, ref = f0, eye, eye, False, kf
     results, inputs, syncs, where, events = [], [], [], Counter(), []
     for i in range(1, len(uploads)):
@@ -796,7 +819,7 @@ def run_sequence(cfg, uploads, count_syncs=False):
                                        culled=culled, syncs=ev_syncs))
                     kf = summary[0]
                     lm = mapstate.take(m.kf_obs, kf)
-                    lp, lpv = _last_points(cfg, m, r.frame, r.Tcw, lm)
+                    lp, lpv = system.last_points(cfg, m, r.frame, r.Tcw, lm)
                     ref = kf
                 else:
                     lm, lp, lpv, ref = r.matched_pt, r.next_pts, r.next_pts_valid, r.ref_kf
@@ -905,7 +928,7 @@ def main_path_phase(cfg, poses, frames, dev):
     ba_iters = (1 + cfg.ba_iters_a) + (1 + cfg.ba_iters_b)       # K9 launches per local BA
     n_ba = sum(1 for sm in summ if sm[1] + sm[7] > 2)            # keyframes before culling
     expected = {k: v * N_FRAMES for k, v in per_frame.items()}
-    expected.update(best_two=int(n_track + sc[:, 10].sum() + sc[:, 7].sum()),
+    expected.update(best_two=int(n_track + sc[:, 10].sum()), best_two_node=int(sc[:, 7].sum()),
                     proj_match=int(n_track + sum(sm[8] + 1 for sm in summ)),
                     pose_lm=int(2 * n_track + sc[:, 7].sum()), pose_normal_eqs=0,
                     epi_match=n_ev, ba_edge=ba_iters * n_ba)
@@ -1346,6 +1369,12 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
                      lambda: cm.window_best_two(*k4), lambda: cm.window_best_two_plain(*k4),
                      _proj_match_bytes(k4, cand4),
                      k4[4].numel() + k4[9].numel() + 12 * pairs4 + 24 * n4),
+        "best_two_node": ("2048x2048, every node 0 (the tracking fallback's and "
+                          "relocalization's gate), synthetic (gate and best-two, one launch)",
+                          lambda: cm.node_best_two(*k4n), lambda: cm.node_best_two_plain(*k4n),
+                          _node_bytes(k4n, cand4n),
+                          int((k4n[2] & (k4n[0] >= 0)).sum()) * k4n[3].shape[0]
+                          + 24 * int(cand4n.sum())),
         "proj_match": (f"{k5[0].shape[0]} local points x {k5[6].shape[0]} keypoints, frame 1",
                        lambda: cm.projection_best_two(*k5),
                        lambda: cm.projection_best_two_plain(*k5),
@@ -1410,20 +1439,6 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
         f"{fusion[6].shape[0]} keypoints): kernel {_event_ms(lambda: cm.projection_best_two(*fusion)):.4f}"
         f" ms, twin {_event_ms(lambda: cm.projection_best_two_plain(*fusion), 10):.4f} ms per call; "
         f"device time kernel {union_ms:.4f} ms (queued)")
-    node_ms, node_dev = _event_ms(lambda: cm.node_best_two(*k4n)), \
-        _queued_ms(lambda: cm.node_best_two(*k4n))
-    node_bound, node_by = _bound(_node_bytes(k4n, cand4n),
-                                 int((k4n[2] & (k4n[0] >= 0)).sum()) * k4n[3].shape[0]
-                                 + 24 * int(cand4n.sum()))
-    per_call["best_two"].update(node_2048_ms=node_ms, node_2048_device_ms=node_dev,
-                                node_2048_bound_ms=node_bound)
-    log(f"[timing] {card}: best_two node form at 2048x2048, every node 0 (the tracking "
-        f"fallback), synthetic: per call {node_ms:.4f} ms, device time {node_dev:.4f} ms "
-        f"(queued), twin {_event_ms(lambda: cm.node_best_two_plain(*k4n), 10):.4f} ms per "
-        f"call; bound {node_bound:.4f} ms by {node_by}")
-    if node_dev < node_bound:
-        raise AssertionError(f"best_two node form: device time {node_dev:.4f} ms below its "
-                             f"bound {node_bound:.4f} ms")
     tiles = _synthetic_proj_tiles(np.random.default_rng(2), dev)[0]
     cand_t = cm.projection_candidates(*tiles[:5], *tiles[6:10])
     t_ms, t_dev = _event_ms(lambda: cm.projection_best_two(*tiles)), \
@@ -1524,6 +1539,140 @@ def k7_path(recorded):
     return n
 
 
+def _system_lap(cfg, voc, frames, depth, dev, times=None):
+    """A fresh SlamSystem over the frames (host arrays, as a camera hands
+    them over) with the natural keyframe policy, then flush(). Returns the
+    system and the tracking state after each call; with `times`, the wall
+    ms of each call (a synchronous call returns with its pose on the host)."""
+    s = system.SlamSystem(cfg, vocabulary=voc, enable_loop_closing=False, pipeline_depth=depth,
+                          device=dev)
+    states = []
+    for i, (gray, depth_img) in enumerate(frames):
+        t0 = time.perf_counter()
+        s.track_rgbd(gray, depth_img, i / cfg.fps)
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+        states.append(s.state)
+    s.flush()
+    torch.cuda.synchronize()
+    return s, states
+
+
+def _check_lap(name, s, states, poses, cfg, ref):
+    """A lap against the reference's: the same state after every call,
+    as many keyframes, each within SYSTEM_KF_SLACK frames of the reference's,
+    ATE at most 2x the reference's + 1 cm, a finite map. Returns (keyframe
+    frames, ATE)."""
+    kf = sorted(e["frame"] for e in s.metrics if e.get("kf"))
+    gt = [(i / cfg.fps, T) for i, T in enumerate(poses)]
+    ate = trajectory.ate_rmse(s.get_trajectory(), gt)
+    ref_kf, ref_ate = ref[f"{name}_kf_frames"], ref[f"{name}_ate_m"]
+    log(f"[system] {name} lap: states {states}; keyframes at frames {kf} (reference {ref_kf}); "
+        f"{int(s.m.n_keyframes)} keyframes, {int(s.m.n_points)} points; ATE {ate * 100:.3f} cm "
+        f"(reference {ref_ate * 100:.3f} cm)")
+    if states != ref[f"{name}_states"]:
+        raise AssertionError(f"{name} lap: states {states} != the reference's "
+                             f"{ref[f'{name}_states']}")
+    if len(kf) != len(ref_kf) or any(abs(a - b) > SYSTEM_KF_SLACK for a, b in zip(kf, ref_kf)):
+        raise AssertionError(f"{name} lap: keyframes at {kf}, the reference's at {ref_kf} "
+                             f"(each within {SYSTEM_KF_SLACK} frames required)")
+    if not ate <= 2 * ref_ate + 0.01:
+        raise AssertionError(f"{name} lap: ATE {ate:.4f} m > 2 x the reference's {ref_ate:.4f} "
+                             f"m + 1 cm")
+    bad = _map_finite(s.m)
+    if bad:
+        raise AssertionError(f"{name} lap: non-finite {bad} in the map")
+    return kf, ate
+
+
+def system_phase(cfg, poses, frames, dev, card):
+    """The port's entry point as a user calls it: SlamSystem.track_rgbd over
+    the sequence's frames with the natural keyframe policy and the 10^6-word
+    vocabulary (a synchronous lap), a kidnap (state LOST, then the render of
+    a mapped pose must relocalize: BoW candidates, K4's node form, EPnP
+    RANSAC, K6, K4's window form in the rescue rounds; twice, the second
+    timed warm), a fresh system with
+    the pipelined stream at depth 3, and the trajectory through save_tum /
+    load_tum. Counts set to 0 before, read after. Returns the launches and
+    the phase's timings."""
+    voc = synth_vocabulary(10, 6, device=dev)
+    log(f"[system] synth_vocabulary(10, 6): {voc.n_nodes} nodes, {voc.n_words} words on the "
+        f"card ({_nbytes(voc.children, voc.centroids, voc.word_id, voc.word_weight) / 1e6:.1f} MB)")
+    launch.reset_launches()
+    times = []
+    s, states = _system_lap(cfg, voc, frames, 0, dev, times)
+    kf, ate = _check_lap("sync", s, states, poses, cfg, REFERENCE_SYSTEM)
+
+    s.state = system.LOST
+    gray, depth_img = frames[KIDNAP_POSE]
+    t0 = time.perf_counter()
+    T = s.track_rgbd(gray, depth_img, 99.0)
+    reloc_ms = (time.perf_counter() - t0) * 1e3
+    err = None if T is None else _centre_error(torch.from_numpy(T), poses[0], poses[KIDNAP_POSE])
+    log(f"[system] kidnap: state LOST, then the render of pose {KIDNAP_POSE}: "
+        f"{'relocalized' if T is not None else 'not relocalized'} to keyframe {s.ref_kf} "
+        f"(reference {REFERENCE_SYSTEM['kidnap_kf']}), camera-centre error "
+        f"{'-' if err is None else f'{err * 100:.3f}'} cm (reference "
+        f"{REFERENCE_SYSTEM['kidnap_err_m'] * 100:.3f} cm), state {s.state}")
+    if T is None or s.state != system.OK or not err < 0.05:
+        raise AssertionError(f"kidnap: relocalization failed (pose {T is not None}, state "
+                             f"{s.state}, centre error {err})")
+    # the same kidnap again: the first relocalization of the process also
+    # pays the first use of what only relocalization calls (the batched
+    # eigh / SVD / solves of EPnP RANSAC)
+    s.state = system.LOST
+    t0 = time.perf_counter()
+    T2 = s.track_rgbd(gray, depth_img, 100.0)
+    reloc2_ms = (time.perf_counter() - t0) * 1e3
+    err2 = None if T2 is None else _centre_error(torch.from_numpy(T2), poses[0],
+                                                 poses[KIDNAP_POSE])
+    if T2 is None or not err2 < 0.05:
+        raise AssertionError(f"second kidnap: relocalization failed (centre error {err2})")
+
+    t0 = time.perf_counter()
+    st, st_states = _system_lap(cfg, voc, frames, STREAM_DEPTH, dev)
+    stream_s = time.perf_counter() - t0
+    _, st_ate = _check_lap("stream", st, st_states, poses, cfg, REFERENCE_SYSTEM)
+    if not st_ate <= max(3 * ate, 0.03):
+        raise AssertionError(f"stream lap: ATE {st_ate:.4f} m > max(3 x the sync lap's "
+                             f"{ate:.4f} m, 3 cm)")
+    torch.cuda.synchronize()
+    launches = dict(launch.LAUNCHES)
+
+    path = os.path.join(ROOT, "_scratch", "system_trajectory.tum")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    traj = st.get_trajectory()
+    trajectory.save_tum(path, traj)
+    back = trajectory.load_tum(path)
+    dT = max(float(np.abs(a - b).max()) for (_, a), (_, b) in zip(traj, back))
+    if len(back) != len(traj) or [round(t, 6) for t, _ in traj] != [t for t, _ in back] \
+            or dT > 1e-5:
+        raise AssertionError(f"save_tum / load_tum: {len(back)} of {len(traj)} poses back, "
+                             f"max |diff| {dT:.3g}")
+    log(f"[system] save_tum / load_tum: {len(back)} poses back, max |diff| {dT:.2g}")
+    missing = [k for k, v in launches.items() if v == 0 and k != "pose_normal_eqs"]
+    log(f"[system] launches over the phase (sync lap, kidnap, stream lap): {launches}")
+    if missing:
+        raise AssertionError(f"[system] phase: kernels never launched: {missing}")
+
+    is_kf = set(kf)
+    plain = [t for i, t in enumerate(times) if i and i not in is_kf]
+    at_kf = [t for i, t in enumerate(times) if i in is_kf]
+    res = {"sync_track_ms_median": statistics.median(plain),
+           "sync_keyframe_track_ms_median": statistics.median(at_kf),
+           "sync_init_ms": times[0], "stream_fps": (len(frames) - 1) / stream_s,
+           "stream_depth": STREAM_DEPTH, "reloc_ms": reloc_ms, "reloc_again_ms": reloc2_ms,
+           "sync_ate_m": ate,
+           "stream_ate_m": st_ate, "kidnap_err_m": err, "keyframes_sync": len(kf)}
+    log(f"[system] {card}: track_rgbd median {res['sync_track_ms_median']:.2f} ms per frame "
+        f"({len(plain)} frames without a keyframe), {res['sync_keyframe_track_ms_median']:.2f} "
+        f"ms per keyframe frame ({len(at_kf)}), initialization {times[0]:.1f} ms; stream "
+        f"(depth {STREAM_DEPTH}) {res['stream_fps']:.2f} frames per second over "
+        f"{len(frames) - 1} frames and the flush; the kidnap frame's relocalization "
+        f"{reloc_ms:.1f} ms, the same kidnap again {reloc2_ms:.1f} ms")
+    return launches, res
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -1548,24 +1697,35 @@ def main():
     launches, uploads, inputs, results, syncs, reads, events = main_path_phase(
         cfg, poses, frames, dev)
     side_launches = {"pose_normal_eqs": k7_path(recorded)}
+    system_launches, system_res = system_phase(cfg, poses, frames, dev, card)
+    if not launches["best_two_node"]:
+        # no frame of the forced run fell back to the reference keyframe:
+        # the node form's launches are the [system] phase's (relocalization)
+        side_launches["best_two_node"] = system_launches["best_two_node"]
     missing = [k for k, v in {**launches, **side_launches}.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched: {missing}")
     per_call = timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads,
                             events, dev, card)
+    log(f"[result] {card}: " + json.dumps({"system": system_res}))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     # K7 is on no call chain of the main path: its `launches` are the side
-    # run's (k7_path), and `main_path_launches` says what the main path gave
+    # run's (k7_path), and `main_path_launches` says what the main path gave;
+    # `system_launches` are the [system] phase's
+    froms = {"pose_normal_eqs": "a run of its own: no call chain of the main path reaches it",
+             "best_two_node": "the [system] phase: relocalization's BoW search (no frame of "
+                              "the main path fell back to the reference keyframe)"}
     kernels = []
     for name, (src, rep) in SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                  "launches": side_launches.get(name, launches[name]),
-                 "main_path_launches": launches[name], "max_abs_err": errs[name],
+                 "main_path_launches": launches[name],
+                 "system_launches": system_launches[name], "max_abs_err": errs[name],
                  **per_call[name]}
         if name in side_launches:
-            entry["launches_from"] = "a run of its own: no call chain of the main path reaches it"
+            entry["launches_from"] = froms[name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,11 @@
 // Cholesky solve and the retract itself on sums that are equal bit for bit
 // everywhere, so no barrier broadcasts a pose. The sums run in a fixed
 // order with no atomics: two launches give the same bits. Needs sm_90.
+//
+// K7 is one such sweep on the same cluster (8 CTAs x 256 threads, edges
+// beyond 2048 looped) through the same `cluster_sweep`, with the caller's
+// float weight per edge in place of K6's inlier flags: its 28 sums run in
+// K6's fixed order, and rank 0 writes H (both triangles), b and err.
 #include <cooperative_groups.h>
 
 #include "pose_sweep.cuh"
@@ -33,14 +38,13 @@ namespace cg = cooperative_groups;
 namespace {
 
 using pose::kSums;
-using pose::kThreads;
-using pose::kWarps;
 
 constexpr int kCtas = 8;                          // K6: one cluster of 8 CTAs, on 8 SMs
 constexpr int kCtaThreads = 256;                  // one edge per thread at E <= 2048
 constexpr int kCtaWarps = kCtaThreads / 32;
 constexpr int kEdgesInRegisters = kCtas * kCtaThreads;
 constexpr int kPad = 32;                          // the 28 sums padded to a warp
+constexpr int kOut = 43;                          // K7's output: H 36, b 6, err 1
 
 // Damped Cholesky solve of (H + lam diag(H) + 1e-10 I) dx = b, H given as
 // its upper triangle (row-major, 21). Inlined and unrolled: its arrays are
@@ -148,22 +152,25 @@ struct LmShared {
 
 // One sweep over the cluster's edges at pose P (registers, the same in every
 // thread of the cluster): out = [H upper triangle, b, err], equal bit for
-// bit in every thread. A thread's first edge is in registers; edges beyond
-// the cluster's width are read from global memory.
+// bit in every thread. A thread's first edge eg, with its mask m_g, is in
+// registers; edges beyond the cluster's width are read from global memory
+// with their mask (K6: its 0/1 inlier bytes; K7: the caller's float
+// weights). robust applies the Huber weights.
+template <typename MaskT>
 __device__ __forceinline__ void cluster_sweep(
     cg::cluster_group& cluster, LmShared& sh, int& parity, const float* P,
-    const pose::Camera& c, bool mine, const pose::Edge& eg, bool inl_g, int g,
+    const pose::Camera& c, bool mine, const pose::Edge& eg, float m_g, int g,
     const float* __restrict__ xw, const float* __restrict__ obs,
     const float* __restrict__ inv_s2, const uint8_t* __restrict__ stereo,
-    const uint8_t* inliers, int n_edges, bool robust, float out[kSums]) {
+    const MaskT* mask, int n_edges, bool robust, float out[kSums]) {
   const int tid = threadIdx.x, lane = tid & 31, rank = static_cast<int>(cluster.block_rank());
   float acc[kPad];
 #pragma unroll
   for (int k = 0; k < kPad; ++k) acc[k] = 0.f;
-  if (mine) pose::edge_terms(P, c, eg, inl_g ? 1.f : 0.f, robust, acc);
+  if (mine) pose::edge_terms(P, c, eg, m_g, robust, acc);
   for (int e = g + kEdgesInRegisters; e < n_edges; e += kEdgesInRegisters)
     pose::edge_terms(P, c, pose::load_edge(xw, obs, inv_s2, stereo, e),
-                     static_cast<float>(inliers[e]), robust, acc);
+                     static_cast<float>(mask[e]), robust, acc);
   const float wsum = warp_scatter_sum(acc, lane);
   if (lane < kSums) sh.red[(tid >> 5) * kSums + lane] = wsum;
   __syncthreads();
@@ -241,8 +248,8 @@ pose_lm_kernel(pose::Params par, const float* __restrict__ xw,
   float cur[kSums], vec[kSums], Tn[12];
   for (int r = 0; r < n_rounds; ++r) {
     const bool robust = r < 2;
-    cluster_sweep(cluster, sh, parity, T, c, mine, eg, inl_g, g, xw, obs, inv_s2, stereo,
-                  inliers, n_edges, robust, cur);
+    cluster_sweep(cluster, sh, parity, T, c, mine, eg, inl_g ? 1.f : 0.f, g, xw, obs, inv_s2,
+                  stereo, inliers, n_edges, robust, cur);
     float lam = 1e-4f;
     for (int it = 0; it < n_iters; ++it) {
       // every thread solves: the same code on the same sums gives the same
@@ -250,8 +257,8 @@ pose_lm_kernel(pose::Params par, const float* __restrict__ xw,
       float dx[6];
       chol6_solve(cur, cur + 21, lam, dx);
       retract(T, dx, Tn);
-      cluster_sweep(cluster, sh, parity, Tn, c, mine, eg, inl_g, g, xw, obs, inv_s2, stereo,
-                    inliers, n_edges, robust, vec);
+      cluster_sweep(cluster, sh, parity, Tn, c, mine, eg, inl_g ? 1.f : 0.f, g, xw, obs,
+                    inv_s2, stereo, inliers, n_edges, robust, vec);
       if (vec[27] < cur[27]) {                // false for NaN: rejected
 #pragma unroll
         for (int k = 0; k < 12; ++k) T[k] = Tn[k];
@@ -301,18 +308,37 @@ pose_lm_kernel(pose::Params par, const float* __restrict__ xw,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K7: one sweep at Tcw with a float weight per edge, on the same cluster
+// and through the same cluster_sweep as K6's, so its sums run in K6's order.
+__global__ void __cluster_dims__(kCtas, 1, 1) __launch_bounds__(kCtaThreads, 1)
 pose_normal_eqs_kernel(pose::Params par, const float* __restrict__ xw,
                        const float* __restrict__ obs, const float* __restrict__ inv_s2,
                        const uint8_t* __restrict__ stereo, const float* __restrict__ mask,
                        int n_edges, int robust, float* __restrict__ out) {
-  __shared__ float T[12], vec[kSums];
-  __shared__ float red[kWarps * kSums];
-  if (threadIdx.x < 12) T[threadIdx.x] = pose::pose_entry(par.Tcw, threadIdx.x);
-  __syncthreads();
-  pose::sweep(T, pose::load_camera(par), xw, obs, inv_s2, stereo, mask, n_edges,
-              robust != 0, red, vec);
-  if (threadIdx.x < kSums) out[threadIdx.x] = vec[threadIdx.x];
+  __shared__ LmShared sh;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int g = rank * kCtaThreads + threadIdx.x;
+  float T[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) T[k] = pose::pose_entry(par.Tcw, k);
+  const bool mine = g < n_edges;
+  const pose::Edge eg = mine ? pose::load_edge(xw, obs, inv_s2, stereo, g) : pose::Edge{};
+  const float m_g = mine ? mask[g] : 0.f;
+  int parity = 0;
+  cluster.sync();             // every CTA runs before any writes into its shared memory
+  float vec[kSums];
+  // after its cluster barrier no CTA touches another's shared memory, so
+  // the CTAs may exit in any order
+  cluster_sweep(cluster, sh, parity, T, pose::load_camera(par), mine, eg, m_g, g, xw, obs,
+                inv_s2, stereo, mask, n_edges, robust != 0, vec);
+  // out = [H (6x6 row-major, both triangles from the upper), b, err]: the
+  // wrapper returns views, no gather after the launch
+  const int t = threadIdx.x;
+  if (rank == 0 && t < kOut) {
+    const int i = min(t / 6, t % 6), j = max(t / 6, t % 6);
+    out[t] = t < 36 ? vec[i * 6 - i * (i - 1) / 2 + j - i] : vec[t - 15];
+  }
 }
 
 }  // namespace
@@ -346,7 +372,7 @@ extern "C" int orb_pose_normal_eqs(const void* Tcw, const void* fx, const void* 
                          static_cast<const float*>(fy), static_cast<const float*>(cx),
                          static_cast<const float*>(cy), static_cast<const float*>(bf),
                          d2_mono, d2_stereo};
-  pose_normal_eqs_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  pose_normal_eqs_kernel<<<kCtas, kCtaThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       par, static_cast<const float*>(xw), static_cast<const float*>(obs),
       static_cast<const float*>(inv_s2), static_cast<const uint8_t*>(stereo),
       static_cast<const float*>(mask), n_edges, robust, static_cast<float*>(out));

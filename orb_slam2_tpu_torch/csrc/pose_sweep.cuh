@@ -1,7 +1,8 @@
-// The motion-only BA sweep shared by K6 (pose_lm.cu, `orb_pose_lm`) and K7
-// (pose_lm.cu, `orb_pose_normal_eqs`): one linearization of every edge at a
-// pose (`edge_terms`, shared by both), reduced to the 6x6 normal equations
-// (K7 over one block here, `sweep`; K6 over a cluster, in pose_lm.cu).
+// The per-edge terms of the motion-only BA sweep shared by K6 (pose_lm.cu,
+// `orb_pose_lm`) and K7 (pose_lm.cu, `orb_pose_normal_eqs`): one
+// linearization of an edge at a pose (`edge_terms`), which both kernels
+// reduce to the 6x6 normal equations over one cluster through pose_lm.cu's
+// `cluster_sweep`.
 //
 // It is the per-edge body of orb_slam2_tpu/ops/pallas_kernels.py
 // `_pose_sweep` / `_pose_hbe_kernel` (= solvers/pose_opt.py
@@ -19,8 +20,8 @@
 //
 // Precision: float32 throughout, per edge in exactly the twin's operation
 // order (`pose_opt.normal_eq_terms`; pose_lm.cu is built with -fmad=false,
-// so nothing is contracted into an FMA), so the kernel and its twin differ
-// only in the order of the float32 sums over the edges.
+// so nothing is contracted into an FMA), so the kernels and their twins
+// differ only in the order of the float32 sums over the edges.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,8 +29,6 @@
 
 namespace pose {
 
-constexpr int kThreads = 512;            // K7: one CTA of 16 warps, <= 128 registers each
-constexpr int kWarps = kThreads / 32;
 constexpr int kSums = 28;                // H upper triangle 21, b 6, err 1
 
 struct Camera {
@@ -112,44 +111,6 @@ __device__ __forceinline__ void edge_terms(const float* T, const Camera& c, cons
     for (int j = i; j < 6; ++j) acc[k++] += wu * Ju[j] + wv * Jv[j] + wr * Jr[j];
     acc[21 + i] -= wu * eu + wv * ev + wr * eur;
   }
-}
-
-// Sum acc over the block into out[kSums] (shared); every thread must call
-// it. red is shared scratch of kWarps * kSums floats. Ends synchronized.
-__device__ __forceinline__ void block_sum(const float acc[kSums], float* red, float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) {
-    float v = acc[k];
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0) red[warp * kSums + k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kSums) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[w * kSums + threadIdx.x];
-    out[threadIdx.x] = s;
-  }
-  __syncthreads();
-}
-
-// One sweep at pose T (shared, visible to every thread) over E edges with a
-// per-edge mask (float or 0/1 byte): out = [H upper triangle, b, err].
-template <typename MaskT>
-__device__ __forceinline__ void sweep(const float* T, const Camera& c,
-                                      const float* __restrict__ xw,
-                                      const float* __restrict__ obs,
-                                      const float* __restrict__ inv_s2,
-                                      const uint8_t* __restrict__ stereo,
-                                      const MaskT* mask, int n_edges, bool robust,
-                                      float* red, float* out) {
-  float acc[kSums];
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
-  for (int e = threadIdx.x; e < n_edges; e += kThreads)
-    edge_terms(T, c, load_edge(xw, obs, inv_s2, stereo, e), static_cast<float>(mask[e]),
-               robust, acc);
-  block_sum(acc, red, out);
 }
 
 }  // namespace pose

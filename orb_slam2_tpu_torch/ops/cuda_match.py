@@ -199,7 +199,7 @@ def node_best_two(node_a, desc_a, valid_a, node_b, desc_b, valid_b):
         check(t, dtype, shape, dev, f"node_best_two {name}", align)
     best, idx, second = (torch.empty((n,), dtype=torch.int32, device=dev) for _ in range(3))
     if n:
-        launch("best_two", "orb_node_best_two", dev, ptr(desc_a), ptr(node_a), ptr(valid_a), n,
+        launch("best_two_node", "orb_node_best_two", dev, ptr(desc_a), ptr(node_a), ptr(valid_a), n,
                ptr(desc_b), ptr(node_b), ptr(valid_b), m, ptr(best), ptr(idx), ptr(second))
     return best, idx, second
 

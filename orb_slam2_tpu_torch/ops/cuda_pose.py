@@ -6,7 +6,9 @@
 | `pose_lm`         | `pose_lm.cu` `orb_pose_lm`  | `pallas_kernels.pose_lm_pallas`           | `pose_lm_plain`         |
 | `pose_normal_eqs` | `pose_lm.cu` `orb_pose_normal_eqs` | `pallas_kernels.pose_normal_eqs_pallas` | `pose_normal_eqs_plain` |
 
-Both kernels run the sweep of `csrc/pose_sweep.cuh`. Each wrapper
+Both kernels run one thread-block cluster of 8 CTAs (sm_90) and reduce the
+per-edge terms of `csrc/pose_sweep.cuh` through one cluster sweep
+(`pose_lm.cu` `cluster_sweep`), in a fixed order. Each wrapper
 dispatches on the device of its input (`launch.py`): a CPU tensor runs the
 twin, a CUDA tensor launches the kernel or raises. The kernels sum the edges
 in another order than the twins, so they agree within a tolerance, not bit
@@ -116,7 +118,9 @@ def pose_normal_eqs_plain(cam, Tcw, Xw, obs, inv_sigma2, stereo, weight_mask,
 
 def pose_normal_eqs(cam, Tcw, Xw, obs, inv_sigma2, stereo, weight_mask,
                     robust: bool):
-    """Kernel wrapper of `pose_normal_eqs_plain`."""
+    """Kernel wrapper of `pose_normal_eqs_plain`: one launch, one cluster of
+    8 CTAs (sm_90) running K6's sweep once, edges beyond 2048 looped; the
+    kernel writes H whole, so the results are views of its output."""
     if on_cpu(Xw):
         return pose_normal_eqs_plain(cam, Tcw, Xw, obs, inv_sigma2, stereo,
                                      weight_mask, robust)
@@ -124,8 +128,8 @@ def pose_normal_eqs(cam, Tcw, Xw, obs, inv_sigma2, stereo, weight_mask,
     e = _check_edges(Xw, obs, inv_sigma2, "pose_normal_eqs")
     check(stereo, torch.bool, (e,), dev, "pose_normal_eqs stereo")
     check(weight_mask, torch.float32, (e,), dev, "pose_normal_eqs weight_mask")
-    out = torch.empty((28,), dtype=torch.float32, device=dev)
+    out = torch.empty((43,), dtype=torch.float32, device=dev)   # H 6x6, b, err
     launch("pose_normal_eqs", "orb_pose_normal_eqs", dev,
            *_params(cam, Tcw, "pose_normal_eqs"), ptr(Xw), ptr(obs), ptr(inv_sigma2),
            ptr(stereo), ptr(weight_mask), e, int(bool(robust)), ptr(out))
-    return out[triangle(dev)[2]], out[21:27], out[27]
+    return out[:36].view(6, 6), out[36:42], out[42]

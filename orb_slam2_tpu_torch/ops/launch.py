@@ -5,8 +5,9 @@ Each wrapper (`cuda_extract.py`, `cuda_match.py`, `cuda_pose.py`,
 `cuda_ba.py`) runs its
 plain-PyTorch twin for a CPU tensor and launches its CUDA kernel for a CUDA
 tensor, or raises: there is no switch and no fallback. `LAUNCHES` counts
-kernel launches by kernel name, one per launch and nowhere else, so a run
-can show that it went through the kernels.
+kernel launches by kernel name (K4's two forms apart: `best_two` the window
+form, `best_two_node` the node form), one per launch and nowhere else, so a
+run can show that it went through the kernels.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import functools
 import torch
 
 LAUNCHES = {"pyramid": 0, "dense_stage": 0, "brief": 0, "best_two": 0,
-            "proj_match": 0, "pose_lm": 0, "pose_normal_eqs": 0, "epi_match": 0,
+            "best_two_node": 0, "proj_match": 0, "pose_lm": 0, "pose_normal_eqs": 0, "epi_match": 0,
             "ba_edge": 0}
 
 

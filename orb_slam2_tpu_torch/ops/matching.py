@@ -116,6 +116,30 @@ def search_by_projection_points(
     return Matches(best_idx, best, keep)
 
 
+def search_by_projection_reloc(
+    uv, pred_level, point_desc, point_valid, point_angle,
+    kp_xy, kp_level, kp_desc, kp_valid, kp_angle, already_matched,
+    scale_factors, th: float, orb_dist: int, check_rotation: bool = True,
+):
+    """The relocalization rescue search (`ORBmatcher::SearchByProjection(
+    Frame&, KeyFrame*, set&, th, ORBdist)`, `src/ORBmatcher.cc:1922-2075`):
+    the candidate keyframe's points (P,) projected at the pose estimate,
+    square window th * scale(predicted octave), octaves [pred - 1, pred + 1],
+    no stereo test, targets the valid keypoints not matched yet; accept at
+    distance <= orb_dist, the rotation histogram, no ratio test. The gate
+    and the reduction are K4's window form; its second best is unused."""
+    radius = _radius(th, scale_factors, pred_level)
+    best, best_idx, _ = cuda_match.window_best_two(
+        uv, radius, pred_level, torch.full_like(radius, -1.0), point_valid, point_desc,
+        kp_xy, kp_level, torch.full((kp_xy.shape[0],), -1.0, device=kp_xy.device),
+        (kp_valid & ~already_matched).contiguous(), kp_desc, (-1, 1))
+    accept = (best <= orb_dist) & point_valid
+    if check_rotation:
+        accept = rotation_consistency(point_angle, kp_angle, accept, best_idx)
+    keep = resolve_conflicts(best_idx, best, accept, kp_xy.shape[0])
+    return Matches(best_idx, best, keep)
+
+
 def search_by_projection_frame(
     uv, src_level, src_desc, src_valid, src_angle, src_ur,
     kp_xy, kp_level, kp_desc, kp_valid, kp_angle, kp_ur,

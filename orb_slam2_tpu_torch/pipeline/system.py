@@ -1,0 +1,804 @@
+"""The system facade, the tracking state machine and the keyframe events
+(port of `orb_slam2_tpu/pipeline/system.py`, the RGB-D path).
+
+`System` / `Tracking` / `LocalMapping` (`src/System.cc:18-147`,
+`src/Tracking.cc:431-767`, `src/LocalMapping.cc:71-159`): the reference's
+three threads and their queues become a staged schedule. Every tracked
+frame runs the tracking step (`tracking_step.py`); a keyframe runs the whole
+mapping pass on the new map at once (`mapping_ops.keyframe_pass`). The heavy
+work is on the device; this class sequences it and keeps the small host
+state: the tracking state, the motion model, the trajectory, the keyframe
+decision.
+
+Two ways to run a sequence: synchronous (`pipeline_depth=0`, the default:
+each frame's pose is read back before the next is dispatched), or the
+pipelined stream (`pipeline_depth=d > 0`: frame i is dispatched with its
+state chained on the device and frame i - d is retired; a keyframe a frame
+spawns reaches tracking d frames later, the relaxation the reference makes
+by running LocalMapping in its own thread). On a CUDA device the retire
+payload goes back by a non-blocking copy into pinned host memory behind a
+CUDA event, which the retire waits on.
+
+Ported: RGB-D tracking and initialization, the natural keyframe policy,
+relocalization from LOST (`_relocalize`), localization mode, reset,
+trajectory export. Not ported yet (ROADMAP Queue 1): loop closing and
+global BA (item 3), monocular and stereo (item 4), the two-device split
+(item 5), the frame drawer (item 6); each raises NotImplementedError.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..bow import database as bow_db
+from ..bow import vocabulary as bow_voc
+from ..geometry import se3
+from ..mapstate import map as mapstate
+from ..ops import matching
+from ..solvers import pnp, pose_opt
+from ..utils.config import SlamConfig, SENSOR_MONOCULAR
+from . import mapping_ops, tracking_ops, tracking_step
+from .frame import FrameData, make_frame_rgbd
+
+NOT_INITIALIZED = 0
+OK = 1
+LOST = 2
+
+INVALID = -1
+N_SCALARS = 11          # tracking_step.TrackStepResult.scalars
+
+
+class _Pending:
+    """What the pipelined stream returns while a frame's result is still
+    in flight (truthy: the frame was dispatched, not lost)."""
+    def __repr__(self):
+        return "<pose pending>"
+
+    def __bool__(self):
+        return True
+
+
+PENDING = _Pending()
+
+
+def _unpack(pk: np.ndarray):
+    """Split the step's (43,) retire payload into (scalars int (11,), Tcw
+    (4,4), T_rel (4,4))."""
+    n = N_SCALARS
+    return pk[:n].astype(np.int64), pk[n:n + 16].reshape(4, 4), pk[n + 16:n + 32].reshape(4, 4)
+
+
+def last_points(cfg: SlamConfig, m: mapstate.MapState, f: FrameData, Tcw, matched_pt):
+    """The next motion-model step's 3D points after a keyframe or a reset of
+    the chain (UpdateLastFrame, `src/Tracking.cc:1228-1330`): the frame's
+    bound map points still alive (a mapping pass may have culled or fused
+    them away), plus, for a depth sensor, the close-depth points of the
+    unbound keypoints. Tcw (4,4) on the map's device. Returns (pos (N,3),
+    valid (N,))."""
+    P = m.capacity_pt
+    idx = torch.clamp(matched_pt, 0, P - 1).long()
+    has = (matched_pt >= 0) & m.pt_valid[idx]
+    if cfg.sensor == SENSOR_MONOCULAR:
+        return m.pt_pos[idx], has
+    pw = se3.apply(se3.inverse(Tcw), mapping_ops.unproject(cfg, f))
+    temporal = (f.depth > 0) & (f.depth < cfg.th_depth * cfg.baseline) & ~has & f.valid
+    return torch.where(temporal[:, None], pw, m.pt_pos[idx]), has | temporal
+
+
+@dataclass
+class TrajectoryEntry:
+    timestamp: float
+    T_rel: np.ndarray      # Tcw * inv(T_ref_kf) at track time
+    ref_kf: int
+    lost: bool
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP Queue 1 "
+                               f"item {item})")
+
+
+class SlamSystem:
+    """Construct once, call `track_rgbd` per frame, then `flush()` and
+    `get_trajectory()`. `device` holds the map and runs the kernels ("cuda",
+    the default) or their plain twins ("cpu")."""
+
+    def __init__(self, cfg: SlamConfig, vocabulary=None, enable_loop_closing=True,
+                 gba_mesh=None, pipeline_depth: int = 0, mapping_device=None,
+                 device="cuda"):
+        if enable_loop_closing:
+            raise _not_ported("loop closing (pass enable_loop_closing=False)", 3)
+        if cfg.gba_every_n_kf > 0:
+            raise _not_ported("periodic global BA (cfg.gba_every_n_kf > 0)", 3)
+        if gba_mesh is not None:
+            raise _not_ported("sharded global BA (gba_mesh)", 5)
+        if mapping_device is not None:
+            raise _not_ported("the two-device tracking / mapping split (mapping_device)", 5)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        # pipeline_depth > 0: the pipelined stream (module docstring)
+        self.pipeline_depth = int(pipeline_depth)
+        self._pending = deque()   # in flight: (timestamp, frame_id, res, payload)
+        self._chain = None        # the device-resident inputs of the next step
+        self.cam = cfg.camera(self.device)
+        self.m = self._empty_map()
+        # place recognition: the vocabulary injected (a converted ORBvoc.txt,
+        # synth_vocabulary) or trained on the fly from the first frames'
+        # descriptors (the reference loads ORBvoc.txt up front,
+        # src/System.cc:58-77)
+        self.voc = vocabulary
+        self.db = self._empty_db() if vocabulary is not None else None
+        self._voc_train_desc = []
+        self.n_loops_closed = 0
+        self.localization_only = False
+        self.state = NOT_INITIALIZED
+        self.velocity: Optional[np.ndarray] = None
+        self.last_Tcw: Optional[np.ndarray] = None
+        self.last_frame: Optional[FrameData] = None
+        self.last_pts = None          # (N,3) 3D points of the last frame's features
+        self.last_pts_valid = None
+        self.last_matched_pt = None   # (N,) map point ids of the last frame
+        self.ref_kf = 0
+        self.frame_id = 0
+        self.last_kf_frame_id = 0
+        self.last_reloc_frame_id = -(1 << 30)
+        self._n_kf_host = None        # host mirror of n_keyframes (lazy)
+        self._kf_seq_host = 0         # keyframes inserted
+        # stream: frames dispatched before the last keyframe insertion skip
+        # the keyframe decision (their statistics predate the map update;
+        # the reference skips NeedNewKeyFrame while the mapper is busy,
+        # src/Tracking.cc:1561-1567)
+        self._kf_blackout_fid = -1
+        self.trajectory: List[TrajectoryEntry] = []
+        self.n_inliers = 0
+        self.metrics: List[dict] = []
+        self.stage_ms: dict = {}      # wall ms of the last keyframe's stages
+
+    def _empty_map(self):
+        cfg = self.cfg
+        return mapstate.empty(cfg.max_keyframes, cfg.max_map_points, cfg.max_keypoints,
+                              device=self.device)
+
+    def _empty_db(self):
+        return bow_db.BowDatabase.empty(self.cfg.max_keyframes, self.cfg.max_keypoints,
+                                        device=self.device)
+
+    def _upload(self, a):
+        """An image (numpy array or tensor) on the system's device; float64
+        becomes float32 on the host, and a host array goes to a CUDA device
+        by a non-blocking copy from pinned memory, so it does not wait for
+        the stream."""
+        t = torch.as_tensor(a)
+        if t.dtype == torch.float64:
+            t = t.to(torch.float32)
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _tensor(self, a):
+        """A small host array (a pose) on the device as float32."""
+        return torch.as_tensor(np.asarray(a, dtype=np.float32)).to(self.device)
+
+    # ------------------------------------------------------------------
+    # public entry points (System::TrackMonocular/Stereo/RGBD)
+    # ------------------------------------------------------------------
+
+    def track_monocular(self, img, timestamp: float):
+        raise _not_ported("monocular tracking", 4)
+
+    def track_stereo(self, img_left, img_right, timestamp: float):
+        raise _not_ported("stereo tracking", 4)
+
+    def track_rgbd(self, img, depth, timestamp: float):
+        """One RGB-D frame: gray image (H,W) uint8 or float, depth (H,W) in
+        the sensor's units (cfg.depth_map_factor). Returns Tcw (4,4) as a
+        numpy array, None when the frame was not tracked, or PENDING while
+        it is in flight in the stream."""
+        if self.state == OK:
+            images = (self._upload(img), self._upload(depth))
+            if self.pipeline_depth > 0:
+                return self._track_stream(images, timestamp, "rgbd")
+            return self._track(None, timestamp, images=images, sensor="rgbd")
+        self._flush_pipeline()
+        f = make_frame_rgbd(self._upload(img), self._upload(depth), self.cfg)
+        return self._track(f, timestamp)
+
+    def _track(self, f: Optional[FrameData], timestamp: float, images=None, sensor=None):
+        if self.state == NOT_INITIALIZED:
+            Tcw = self._initialize_depth(f, timestamp)
+        else:
+            Tcw = self._track_frame(f, timestamp, images=images, sensor=sensor)
+        self.frame_id += 1
+        return Tcw
+
+    def _initialize_depth(self, f: FrameData, timestamp: float):
+        """StereoInitialization (`src/Tracking.cc:774-860`): more than 500
+        features (scaled to the configured budget), then keyframe 0 with a
+        map point for every depth measurement."""
+        if int(f.n) <= min(500, self.cfg.n_features // 2):
+            return None
+        Tcw = torch.eye(4, device=self.device)
+        matched = torch.full((self.cfg.max_keypoints,), INVALID, dtype=torch.int32,
+                             device=self.device)
+        self.m, kf_id = mapping_ops.insert_keyframe(self.cfg, self.m, f, Tcw, matched,
+                                                    self.frame_id, timestamp, all_depth=True)
+        self.ref_kf = int(kf_id)
+        self.last_kf_frame_id = self.frame_id
+        self._kf_seq_host += 1
+        self._n_kf_host = None
+        self.state = OK
+        self._set_last(f, Tcw, self.m.kf_obs[self.ref_kf])
+        self.velocity = None
+        self._on_keyframe_inserted(self.ref_kf, f)
+        eye = np.eye(4, dtype=np.float32)
+        self._record(timestamp, eye, self.ref_kf, False)
+        return eye
+
+    # ------------------------------------------------------------------
+    # Per-frame tracking
+    # ------------------------------------------------------------------
+
+    def _set_last(self, f: FrameData, Tcw, matched_pt):
+        """The last-frame state for the next motion-model step
+        (UpdateLastFrame); Tcw a host array or a device tensor."""
+        T = Tcw if isinstance(Tcw, torch.Tensor) else self._tensor(Tcw)
+        self.last_frame = f
+        self.last_Tcw = T.cpu().numpy()
+        self.last_matched_pt = matched_pt
+        self.last_pts, self.last_pts_valid = last_points(self.cfg, self.m, f, T, matched_pt)
+
+    def _adopt_reloc(self, f, T_r, m_r, reloc_kf, timestamp):
+        """Re-enter tracking from a relocalized pose; the frame is tracked,
+        so its true relative pose is recorded (the reference marks only
+        genuinely lost frames with mbLost, src/Tracking.cc:714-751)."""
+        self.last_Tcw = T_r.cpu().numpy()
+        self.velocity = None
+        self.last_matched_pt = m_r
+        self.last_frame = f
+        self.last_pts = self.m.pt_pos[torch.clamp(m_r, 0, self.m.capacity_pt - 1).long()]
+        self.last_pts_valid = m_r >= 0
+        self.state = OK
+        self.ref_kf = reloc_kf
+        self.last_reloc_frame_id = self.frame_id
+        T_ref = self.m.kf_pose[reloc_kf].cpu().numpy()
+        self._record(timestamp, self.last_Tcw @ np.linalg.inv(T_ref), reloc_kf, False)
+        return self.last_Tcw
+
+    def _track_frame(self, f: Optional[FrameData], timestamp: float, images=None, sensor=None):
+        """A frame after initialization: relocalization of the frame f when
+        LOST, else the tracking step on the images."""
+        cfg = self.cfg
+        if self.state == LOST:
+            T_r, m_r, reloc_kf, ok = self._relocalize(f)
+            if not ok:
+                self._record(timestamp, np.eye(4), self.ref_kf, True)
+                self.metrics.append(dict(frame=self.frame_id, state="LOST", inliers=0))
+                return None
+            return self._adopt_reloc(f, T_r, m_r, reloc_kf, timestamp)
+
+        has_vel = self.velocity is not None
+        vel = self._tensor(self.velocity if has_vel else np.eye(4))
+        # the inlier floor is 50 for one second after a relocalization
+        # (src/Tracking.cc:1471-1477)
+        recently_reloc = self.frame_id < self.last_reloc_frame_id + int(cfg.fps)
+        min_inl = 50 if recently_reloc else 30
+        # the steady-state path: extraction and tracking in one step
+        res = tracking_step.full_tracking_step_from_images(
+            cfg, self.m, images, self.last_frame, self.last_pts, self.last_pts_valid,
+            self.last_matched_pt, self._tensor(self.last_Tcw), vel, has_vel, self.ref_kf,
+            min_inl, sensor)
+        f = res.frame
+        self.m = res.m
+        sc, Tcw, T_rel = _unpack(res.packed.cpu().numpy())
+        ok = bool(sc[0])
+        n_local_inl = int(sc[3])
+        self.ref_kf = int(sc[8])
+        self.n_inliers = n_local_inl
+
+        if not ok and self.localization_only and bool(sc[9]) and int(sc[2]) >= 10:
+            # mbVO: the map matches collapsed but visual odometry holds (the
+            # temporal points carry the pose): keep the VO pose and try to
+            # relocalize on the spot (src/Tracking.cc:533-560, 1018-1090)
+            T_r, m_r, reloc_kf, r_ok = self._relocalize(f)
+            if r_ok:
+                self.metrics.append(dict(frame=self.frame_id, state="OK", inliers=n_local_inl,
+                                         vo=False, relocalized=True))
+                return self._adopt_reloc(f, T_r, m_r, reloc_kf, timestamp)
+            self.state = OK
+            if self.last_Tcw is not None:
+                self.velocity = Tcw @ np.linalg.inv(self.last_Tcw)
+            self.last_frame = f
+            self.last_Tcw = Tcw
+            self.last_matched_pt = res.matched_pt
+            self.last_pts = res.next_pts
+            self.last_pts_valid = res.next_pts_valid
+            self._record(timestamp, T_rel, self.ref_kf, False)
+            self.metrics.append(dict(frame=self.frame_id, state="OK", inliers=n_local_inl,
+                                     vo=True))
+            return Tcw
+
+        if not ok:
+            if not self.localization_only and self._nkf_cache() <= 5:
+                # lost right after initialization: scrap the thin map and
+                # start over (src/Tracking.cc:726-735)
+                self.reset()
+                self._record(timestamp, np.eye(4), 0, True)
+                self.metrics.append(dict(frame=self.frame_id, state="RESET",
+                                         inliers=n_local_inl))
+                return None
+            self.state = LOST
+            self._record(timestamp, np.eye(4), self.ref_kf, True)
+            self.metrics.append(dict(frame=self.frame_id, state="LOST", inliers=n_local_inl))
+            return None
+
+        self.state = OK
+        if self.last_Tcw is not None:
+            self.velocity = Tcw @ np.linalg.inv(self.last_Tcw)
+        if self.voc is None:
+            # collect training descriptors from every tracked frame until the
+            # on-the-fly vocabulary can be built
+            self._ensure_vocabulary(f)
+
+        matched_pt = res.matched_pt
+        need_kf = not self.localization_only and self._need_kf_from_scalars(sc)
+        if need_kf:
+            Tcw, matched_pt = self._handle_keyframe(f, Tcw, matched_pt, self.frame_id,
+                                                    timestamp)
+            self._set_last(f, Tcw, matched_pt)
+            T_ref = self.m.kf_pose[self.ref_kf].cpu().numpy()
+            T_rel = Tcw @ np.linalg.inv(T_ref)
+        else:
+            # the next frame's state straight from the step
+            self.last_frame = f
+            self.last_Tcw = Tcw
+            self.last_matched_pt = matched_pt
+            self.last_pts = res.next_pts
+            self.last_pts_valid = res.next_pts_valid
+
+        self._record(timestamp, T_rel, self.ref_kf, False)
+        entry = dict(frame=self.frame_id, state="OK", inliers=n_local_inl, kf=bool(need_kf),
+                     n_kf=self._nkf_cache() if need_kf else None,
+                     # motion-model matches, their pose inliers, the reference
+                     # keyframe's tracked matches, whether the fallback ran
+                     n_mm=int(sc[1]), mm_inl=int(sc[2]), ref_matches=int(sc[4]),
+                     fallback=bool(sc[7]))
+        if need_kf:
+            entry["stage_ms"] = self.stage_ms
+        self.metrics.append(entry)
+        return Tcw
+
+    # ------------------------------------------------------------------
+    # The pipelined stream (pipeline_depth > 0): dispatch frame i with its
+    # state chained on the device, retire frame i - depth (its payload, the
+    # keyframe decision, the trajectory)
+    # ------------------------------------------------------------------
+
+    def _payload(self, packed):
+        """Start the retire payload's trip to the host: on a CUDA device a
+        non-blocking copy into pinned memory and an event after it."""
+        if self.device.type != "cuda":
+            return packed, None
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _payload_host(payload):
+        host, done = payload
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
+
+    def _track_stream(self, images, timestamp: float, sensor: str):
+        cfg = self.cfg
+        if self._chain is None:
+            # (re)build the chain from the host state (after initialization,
+            # a keyframe, a relocalization or a mode switch)
+            has_vel = self.velocity is not None
+            self._chain = dict(
+                last=self.last_frame, pts=self.last_pts, ptsv=self.last_pts_valid,
+                mpt=self.last_matched_pt, Tcw=self._tensor(self.last_Tcw),
+                vel=self._tensor(self.velocity if has_vel else np.eye(4)), has_vel=has_vel,
+                ref=self.ref_kf)
+        ch = self._chain
+        recently_reloc = self.frame_id < self.last_reloc_frame_id + int(cfg.fps)
+        min_inl = 50 if recently_reloc else 30
+        res = tracking_step.full_tracking_step_from_images(
+            cfg, self.m, images, ch["last"], ch["pts"], ch["ptsv"], ch["mpt"], ch["Tcw"],
+            ch["vel"], ch["has_vel"], ch["ref"], min_inl, sensor)
+        self.m = res.m
+        payload = self._payload(res.packed)
+        self._chain = dict(last=res.frame, pts=res.next_pts, ptsv=res.next_pts_valid,
+                           mpt=res.matched_pt, Tcw=res.Tcw, vel=res.next_vel, has_vel=True,
+                           ref=res.ref_kf)
+        self._pending.append((timestamp, self.frame_id, res, payload))
+        self.frame_id += 1
+        if len(self._pending) > self.pipeline_depth:
+            return self._retire_one()
+        return PENDING
+
+    def _retire_one(self):
+        """Finish the oldest frame in flight: read its payload, run the host
+        tail of the state machine (keyframe decision, trajectory). Returns
+        its pose, or None if it was lost."""
+        timestamp, fid, res, payload = self._pending.popleft()
+        sc, Tcw, T_rel = _unpack(self._payload_host(payload))
+        ok = bool(sc[0])
+        n_local = int(sc[3])
+        self.ref_kf = int(sc[8])
+        self.n_inliers = n_local
+        f = res.frame
+
+        if not ok:
+            if self.localization_only and bool(sc[9]) and int(sc[2]) >= 10:
+                # mbVO: keep the VO pose and keep streaming
+                self.state = OK
+                self.last_Tcw = Tcw
+                self._record(timestamp, T_rel, self.ref_kf, False)
+                self.metrics.append(dict(frame=fid, state="OK", inliers=n_local, vo=True))
+                return Tcw
+            # genuinely lost: the frames dispatched after this one chained
+            # from a bad pose; drain them as lost and leave the stream
+            self._drain_pipeline(record_lost=True)
+            self._chain = None
+            if not self.localization_only and self._nkf_cache() <= 5:
+                self.reset()
+                self._record(timestamp, np.eye(4), 0, True)
+                self.metrics.append(dict(frame=fid, state="RESET", inliers=n_local))
+                return None
+            self.state = LOST
+            self._record(timestamp, np.eye(4), self.ref_kf, True)
+            self.metrics.append(dict(frame=fid, state="LOST", inliers=n_local))
+            return None
+
+        self.state = OK
+        if self.last_Tcw is not None:
+            self.velocity = Tcw @ np.linalg.inv(self.last_Tcw)
+        self.last_Tcw = Tcw
+        if self.voc is None:
+            self._ensure_vocabulary(f)
+
+        need_kf = (not self.localization_only and fid >= self._kf_blackout_fid and
+                   self._need_kf_from_scalars(sc, fid=fid))
+        self._record(timestamp, T_rel, self.ref_kf, False)
+        if need_kf:
+            # drain the short queue and insert the keyframe from the newest
+            # tracked frame (CreateNewKeyFrame snapshots the current frame,
+            # src/Tracking.cc:1638), then rebuild the chain from the
+            # keyframe's bindings after mapping (the reference's handoff
+            # through mCurrentFrame.mvpMapPoints, src/Tracking.cc:1702-1712)
+            newest = self._drain_pipeline(record_lost=False)
+            ts2, fid2, res2, Tcw2 = newest if newest is not None else (timestamp, fid, res, Tcw)
+            Tcw_kf, matched_kf = self._handle_keyframe(res2.frame, Tcw2, res2.matched_pt,
+                                                       fid2, ts2)
+            self._set_last(res2.frame, Tcw_kf, matched_kf)
+            self._chain = None
+            # no keyframe decisions for frames dispatched before this insertion
+            self._kf_blackout_fid = self.frame_id
+            self.metrics.append(dict(frame=fid2, state="OK", kf=True, inliers=n_local,
+                                     ref_matches=int(sc[4]), close_tracked=int(sc[5]),
+                                     close_untracked=int(sc[6]), n_kf=self._nkf_cache(),
+                                     stage_ms=self.stage_ms))
+        else:
+            self.metrics.append(dict(frame=fid, state="OK", inliers=n_local))
+        return Tcw
+
+    def _drain_pipeline(self, record_lost: bool):
+        """Empty the queue in flight with no keyframe decisions: record the
+        frames as lost (the chain upstream broke) or their poses as they
+        are. Returns the newest tracked (timestamp, frame_id, res, Tcw) or
+        None."""
+        newest = None
+        while self._pending:
+            ts2, fid2, r2, payload = self._pending.popleft()
+            sc2, Tcw2, T_rel2 = _unpack(self._payload_host(payload))
+            ok2 = bool(sc2[0]) and not record_lost
+            if ok2:
+                if self.last_Tcw is not None:
+                    # keep the motion model current for the chain's rebuild
+                    self.velocity = Tcw2 @ np.linalg.inv(self.last_Tcw)
+                self.last_Tcw = Tcw2
+                self._record(ts2, T_rel2, int(sc2[8]), False)
+                newest = (ts2, fid2, r2, Tcw2)
+            else:
+                self._record(ts2, np.eye(4), self.ref_kf, True)
+            self.metrics.append(dict(frame=fid2, state="OK" if ok2 else "LOST",
+                                     inliers=int(sc2[3])))
+        return newest
+
+    def _flush_pipeline(self):
+        """Retire everything in flight (sequence end, state transitions)."""
+        while self._pending:
+            self._retire_one()
+        self._chain = None
+
+    def flush(self):
+        """Drain the pipelined stream: call at the end of a sequence before
+        reading the trajectory (System::Shutdown)."""
+        self._flush_pipeline()
+
+    # ------------------------------------------------------------------
+    # Keyframe events
+    # ------------------------------------------------------------------
+
+    def _handle_keyframe(self, f: FrameData, Tcw, matched_pt, fid: int, timestamp: float):
+        """Insert a keyframe from frame f at pose Tcw (host) and run the
+        mapping pass. Returns (Tcw, the keyframe's bindings): no loop
+        correction is ported, so the pose stays as tracked. One host transfer
+        per event, plus one when a keyframe was culled."""
+        return self._finish_keyframe(self._dispatch_mapping(f, Tcw, matched_pt, fid, timestamp))
+
+    def _dispatch_mapping(self, f: FrameData, Tcw, matched_pt, fid: int, timestamp: float):
+        """Enqueue the keyframe's whole mapping pass; returns the event's
+        record."""
+        t_kf0 = time.time()
+        m_new, culled, summary = mapping_ops.keyframe_pass(
+            self.cfg, self.m, f, self._tensor(Tcw), matched_pt, fid, timestamp)
+        self.last_kf_frame_id = fid
+        self._kf_seq_host += 1
+        return dict(m=m_new, culled=culled, summary=summary, f=f, fid=fid, timestamp=timestamp,
+                    kf_seq=self._kf_seq_host, t_kf0=t_kf0, Tcw=np.asarray(Tcw))
+
+    def _finish_keyframe(self, pend):
+        """Adopt a mapping pass: the keyframe's BoW row, the one host
+        transfer, the trajectory rehomed off culled keyframes."""
+        f, culled, summary = pend["f"], pend["culled"], pend["summary"]
+        self.m = pend["m"]
+        self._ensure_vocabulary(f)
+        if self.voc is not None:
+            self.db = self.db.add(summary[0], self._bow_vec(f.desc, f.valid))
+        summary_h = summary.cpu().numpy()         # the one per-keyframe host transfer
+        kf_id = int(summary_h[0])
+        self._n_kf_host = int(summary_h[1])
+        self.ref_kf = kf_id
+        if int(summary_h[3]):                     # a keyframe was culled (rare)
+            culled_h = culled.cpu().numpy()
+            if self.db is not None:
+                self.db = self.db.erase(culled)
+            self._rehome_trajectory(culled_h)
+        self.stage_ms = {"mapping": (time.time() - pend["t_kf0"]) * 1e3}
+        return pend["Tcw"], self.m.kf_obs[kf_id]
+
+    def _need_kf_from_scalars(self, sc, fid=None) -> bool:
+        """NeedNewKeyFrame (`src/Tracking.cc:1499-1623`) from the step's
+        scalars; fid is the frame they belong to (behind self.frame_id by
+        the pipeline depth in the stream)."""
+        cfg = self.cfg
+        if fid is None:
+            fid = self.frame_id
+        n_kf = self._nkf_cache()
+        if n_kf >= cfg.max_keyframes - 2:
+            return False
+        if fid < self.last_reloc_frame_id + int(cfg.fps) and n_kf > int(cfg.fps):
+            # no new keyframes for one second after a relocalization
+            # (src/Tracking.cc:1513-1515)
+            return False
+        n_inliers, ref_matches = int(sc[3]), int(sc[4])
+        close_tracked, close_untracked = int(sc[5]), int(sc[6])
+        frames_since = fid - self.last_kf_frame_id
+        th_ratio = 0.4 if n_kf < 2 else 0.75 if cfg.sensor != SENSOR_MONOCULAR else 0.9
+        need_close = (cfg.sensor != SENSOR_MONOCULAR and
+                      close_tracked < 100 and close_untracked > 70)
+        # bLocalMappingIdle (src/Tracking.cc:1537,1546-1567): the mapper
+        # counts as busy for mapper_busy_frames_effective frames after an
+        # insertion, one mapping iteration's wall time at the camera rate,
+        # once the map has 10 keyframes (a young map's iteration is far
+        # cheaper than a frame interval)
+        busy_window = cfg.mapper_busy_frames_effective if n_kf >= 10 else 0
+        idle = frames_since > busy_window
+        c1a = frames_since >= int(cfg.fps)
+        c1c = cfg.sensor != SENSOR_MONOCULAR and (n_inliers < ref_matches * 0.25 or need_close)
+        c2 = (n_inliers < ref_matches * th_ratio or need_close) and n_inliers > 15
+        if not ((c1a or idle or c1c) and c2):
+            return False
+        # mapper busy (src/Tracking.cc:1592-1623): stereo / RGB-D insert
+        # anyway (each pass runs to completion here, so the queue is empty);
+        # monocular never does
+        return idle or cfg.sensor != SENSOR_MONOCULAR
+
+    def _nkf_cache(self) -> int:
+        # the host's keyframe count, refreshed from each event's summary and
+        # at initialization: no device read per frame
+        if self._n_kf_host is None:
+            self._n_kf_host = int(self.m.n_keyframes)
+        return self._n_kf_host
+
+    # ------------------------------------------------------------------
+    # Mode switches, reset, accessors (System::ActivateLocalizationMode,
+    # Reset, GetTrackingState, src/System.cc:150-344, 621-639)
+    # ------------------------------------------------------------------
+
+    def activate_localization_mode(self):
+        """Tracking only: no keyframes, no mapping (src/System.cc:164-194)."""
+        self.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.localization_only = False
+
+    def reset(self):
+        """System::Reset (`src/Tracking.cc:2265-2313`): clear the map, the
+        database and the trajectory and return to NOT_INITIALIZED."""
+        self.m = self._empty_map()
+        if self.voc is not None:
+            self.db = self._empty_db()
+        self.state = NOT_INITIALIZED
+        self.velocity = None
+        self.last_frame = None
+        self.ref_kf = 0
+        self.last_kf_frame_id = self.frame_id
+        self.last_reloc_frame_id = -(1 << 30)
+        self.trajectory = []
+        self._kf_seq_host = 0
+        self._kf_blackout_fid = -1
+        self._n_kf_host = None
+        self._pending.clear()      # results in flight belong to the old map
+        self._chain = None
+
+    def get_tracking_state(self):
+        return self.state
+
+    def get_map_stats(self):
+        return dict(n_keyframes=int(self.m.n_keyframes), n_map_points=int(self.m.n_points),
+                    n_loops_closed=self.n_loops_closed,
+                    state={NOT_INITIALIZED: "NOT_INITIALIZED", OK: "OK", LOST: "LOST"}[self.state],
+                    last_inliers=self.n_inliers, frame_id=self.frame_id)
+
+    def get_tracked_map_points(self):
+        """The map point matched by each keypoint of the last frame (-1
+        unmatched), System::GetTrackedMapPoints."""
+        return None if self.last_matched_pt is None else self.last_matched_pt.cpu().numpy()
+
+    def get_tracked_keypoints_un(self):
+        """The last frame's undistorted keypoints and their validity,
+        System::GetTrackedKeyPointsUn (`src/System.cc:634-639`)."""
+        if self.last_frame is None:
+            return None
+        return self.last_frame.xy.cpu().numpy(), self.last_frame.valid.cpu().numpy()
+
+    def draw_current_frame(self, img, path="frame.png"):
+        raise _not_ported("the frame drawer", 6)
+
+    # ------------------------------------------------------------------
+    # Place recognition and relocalization
+    # ------------------------------------------------------------------
+
+    def _ensure_vocabulary(self, f: FrameData):
+        if self.voc is not None:
+            return
+        self._voc_train_desc.append(f.desc.cpu().numpy()[f.valid.cpu().numpy()])
+        if sum(len(x) for x in self._voc_train_desc) < 1500:
+            return
+        self.voc = bow_voc.build_vocabulary(np.concatenate(self._voc_train_desc), k=10, depth=3,
+                                            device=self.device)
+        self.db = self._empty_db()
+        # the keyframes inserted before the vocabulary existed
+        for k in np.nonzero(self.m.kf_valid.cpu().numpy())[0]:
+            self.db = self.db.add(int(k), self._bow_vec(self.m.kf_desc[int(k)],
+                                                        self.m.kf_feat_valid[int(k)]))
+        self._voc_train_desc = []
+
+    def _bow_vec(self, desc, valid):
+        """The sorted sparse BoW row (words, weights) of a frame."""
+        word, weight, _ = bow_voc.transform(self.voc, desc, valid)
+        return bow_voc.bow_sparse(word, weight)
+
+    def _on_keyframe_inserted(self, kf_id: int, f: FrameData):
+        """Initialization's keyframe into the vocabulary's training set and
+        the database."""
+        self._ensure_vocabulary(f)
+        if self.voc is not None:
+            self.db = self.db.add(kf_id, self._bow_vec(f.desc, f.valid))
+
+    def _relocalize(self, f: FrameData):
+        """Tracking::Relocalization (`src/Tracking.cc:2039-2262`): BoW
+        candidates, descriptor matching against each candidate keyframe's
+        points (K4's node form), EPnP RANSAC, pose optimization (K6), and
+        below 50 inliers the rescue rounds: a wide projection search of the
+        candidate's points (th 10, ORBdist 100) and, at 30-50 inliers, a
+        narrow one (th 3, ORBdist 64), re-optimizing after each (K4's window
+        form and K6, :2172-2241). Returns (Tcw, matched_pt, kf, ok)."""
+        if self.voc is None or self.db is None:
+            return None, None, None, False
+        cfg, m = self.cfg, self.m
+        cand_mask, _, scores = bow_db.detect_reloc_candidates(self.db,
+                                                              self._bow_vec(f.desc, f.valid),
+                                                              m.covis)
+        cand_mask = (cand_mask & m.kf_valid).cpu().numpy()
+        order = [int(c) for c in np.argsort(-scores.cpu().numpy()) if cand_mask[c]]
+        node_f = torch.where(f.valid, 0, -1).to(torch.int32)
+        obs = torch.cat([f.xy, f.ur[:, None]], dim=-1)
+        for k in order:
+            f_ok = m.kf_feat_valid[k] & (m.kf_obs[k] >= 0)
+            mm = matching.search_by_node(node_f, f.desc, f.valid, f.angle,
+                                         torch.where(f_ok, 0, -1).to(torch.int32), m.kf_desc[k],
+                                         f_ok, m.kf_angle[k], nn_ratio=0.75)
+            pt = m.kf_obs[k][torch.clamp(mm.idx, 0, cfg.max_keypoints - 1).long()]
+            valid = mm.valid & (pt >= 0)
+            if int(valid.sum()) < 15:
+                continue
+            Xw = m.pt_pos[torch.clamp(pt, 0, m.capacity_pt - 1).long()]
+            # fresh hypotheses per (frame, candidate): a retry after a failed
+            # attempt must not redraw the same samples
+            res = pnp.ransac_pnp(Xw, f.xy, f.level, valid, cfg.level_sigma2, float(cfg.fx),
+                                 float(cfg.fy), float(cfg.cx), float(cfg.cy),
+                                 generator=torch.Generator().manual_seed(self.frame_id * 131 + k))
+            if not bool(res.ok):
+                continue
+            matched_pt = torch.where(res.inliers, pt, torch.full_like(pt, INVALID))
+            opt = pose_opt.optimize_pose(self.cam, res.Tcw, Xw, obs, f.level, matched_pt >= 0,
+                                         cfg.level_sigma2)
+            n_good = int(opt.n_inliers)
+            if n_good < 10:
+                continue
+            matched_pt = torch.where(opt.inliers, matched_pt, torch.full_like(matched_pt, INVALID))
+            Tcw = opt.Tcw
+            if n_good < 50:
+                Tcw, matched_pt, n_inl = tracking_ops.reloc_rescue(
+                    cfg, m, k, f, Tcw, matched_pt, th=10.0, orb_dist=100)
+                n_good = int(n_inl)
+                if 30 < n_good < 50:
+                    Tcw, matched_pt, n_inl = tracking_ops.reloc_rescue(
+                        cfg, m, k, f, Tcw, matched_pt, th=3.0, orb_dist=64)
+                    n_good = int(n_inl)
+            if n_good >= 50:
+                return Tcw, matched_pt, k, True
+        return None, None, None, False
+
+    # ------------------------------------------------------------------
+    # Trajectory
+    # ------------------------------------------------------------------
+
+    def _rehome_trajectory(self, culled: np.ndarray):
+        """A culled keyframe's slot may be reused and its pose goes stale,
+        so every trajectory entry on it is re-based now onto its nearest
+        surviving spanning-tree ancestor: T_rel <- T_rel * Tcp, ref <-
+        parent (the reference's mTcp chain, `KeyFrame::SetBadFlag`, walked
+        by `System::SaveTrajectoryTUM`, src/System.cc:431-505 at :476)."""
+        m = self.m
+        poses, valid = m.kf_pose.cpu().numpy(), m.kf_valid.cpu().numpy()
+        parent = m.parent.cpu().numpy()
+        remap = {}          # culled kf -> (survivor kf, Tcp)
+        for k in np.nonzero(culled)[0]:
+            p = int(parent[k])
+            while p >= 0 and not valid[p]:
+                p = int(parent[p])
+            if p < 0:       # no surviving ancestor: the oldest valid keyframe
+                alive = np.nonzero(valid)[0]
+                if len(alive) == 0:
+                    continue
+                fid = m.kf_frame_id.cpu().numpy()
+                p = int(alive[np.argmin(fid[alive])])
+            remap[int(k)] = (p, poses[k] @ np.linalg.inv(poses[p]))
+        if not remap:
+            return
+        for e in self.trajectory:
+            if e.ref_kf in remap:
+                p, Tcp = remap[e.ref_kf]
+                e.T_rel = e.T_rel @ Tcp
+                e.ref_kf = p
+        if self.ref_kf in remap:
+            self.ref_kf = remap[self.ref_kf][0]
+
+    def _record(self, ts, T_rel, ref_kf, lost):
+        self.trajectory.append(TrajectoryEntry(ts, np.asarray(T_rel), ref_kf, lost))
+
+    def get_trajectory(self) -> List[Tuple[float, np.ndarray]]:
+        """The camera trajectory, Twc per tracked frame: each stored relative
+        pose composed with its keyframe's (possibly optimized) pose, the
+        reference's SaveTrajectoryTUM walk (`src/System.cc:416-505`)."""
+        poses = self.m.kf_pose.cpu().numpy()
+        return [(e.timestamp, np.linalg.inv(e.T_rel @ poses[e.ref_kf]))
+                for e in self.trajectory if not e.lost]
+
+    def keyframe_trajectory(self):
+        m = self.m
+        poses, valid = m.kf_pose.cpu().numpy(), m.kf_valid.cpu().numpy()
+        ts, fid = m.kf_timestamp.cpu().numpy(), m.kf_frame_id.cpu().numpy()
+        return [(float(ts[k]), np.linalg.inv(poses[k])) for k in np.argsort(fid) if valid[k]]

@@ -3,8 +3,8 @@
 tracking, the map's visible/found counters and the keyframe-decision
 statistics of `Tracking::Track` (`src/Tracking.cc:431-767`).
 
-None of them reads a value back to the host. The relocalization rescue
-(`reloc_rescue`) is not ported yet.
+None of them reads a value back to the host; neither does the
+relocalization rescue round (`reloc_rescue`).
 """
 from __future__ import annotations
 
@@ -120,6 +120,54 @@ def track_local_map(cfg: SlamConfig, m: mapstate.MapState, Tcw, cur: FrameData,
     final = torch.where(res.inliers, merged, torch.full_like(merged, INVALID))
     visible_ids = torch.where(in_frustum, local_pt, torch.full_like(local_pt, INVALID))
     return res.Tcw, final, res.n_inliers, visible_ids, final
+
+
+def reloc_rescue(cfg: SlamConfig, m: mapstate.MapState, kf_id, cur: FrameData, Tcw,
+                 matched_pt, th: float, orb_dist: int):
+    """One relocalization rescue round (`src/Tracking.cc:2172-2241`): project
+    the candidate keyframe's map points at the pose estimate (the wide round
+    th=10 / ORBdist=100, the narrow th=3 / ORBdist=64), search the frame's
+    unmatched keypoints for them (K4's window form), merge with the matches
+    already found and optimize the pose over the union (K6). Returns (Tcw',
+    matched_pt', n_inliers)."""
+    dev = Tcw.device
+    cam = _camera(cfg, dev)
+    P = m.capacity_pt
+    k = torch.as_tensor(kf_id, device=dev).long()
+    pt = mapstate.take(m.kf_obs, k)                  # map point per keyframe feature
+    ptc = torch.clamp(pt, 0, P - 1).long()
+    pos = m.pt_pos[ptc]
+    # skip points already matched into the frame (sAlreadyFound)
+    already = mapstate.put_drop(
+        torch.zeros((P,), dtype=torch.bool, device=dev),
+        torch.where(matched_pt >= 0, matched_pt, torch.full_like(matched_pt, P)),
+        torch.ones((), dtype=torch.bool, device=dev))
+    pc, uv, _ = _project(cam, Tcw, pos)
+    z = pc[..., 2]
+    pvalid = (pt >= 0) & m.pt_valid[ptc] & ~already[ptc] & (z > 0) & \
+        (uv[..., 0] >= 0) & (uv[..., 0] < cfg.width) & (uv[..., 1] >= 0) & (uv[..., 1] < cfg.height)
+    po = pos - se3.translation(se3.inverse(Tcw))
+    dist = torch.sqrt(torch.sum(po * po, dim=-1))
+    ratio = m.pt_max_dist[ptc] / torch.clamp(dist, min=1e-9)
+    pred_level = torch.clamp(
+        torch.ceil(torch.log(torch.clamp(ratio, min=1e-9)) *
+                   reciprocal_f32(math.log(cfg.scale_factor))).to(torch.int32),
+        0, cfg.n_levels - 1)
+    mm = matching.search_by_projection_reloc(
+        uv, pred_level, mapstate.take(m.kf_desc, k), pvalid, mapstate.take(m.kf_angle, k),
+        cur.xy, cur.level, cur.desc, cur.valid, cur.angle, matched_pt >= 0,
+        cfg.scale_factors, th=th, orb_dist=orb_dist)
+    N = cur.xy.shape[0]
+    new_matched = mapstate.put_drop(
+        torch.full((N,), INVALID, dtype=torch.int32, device=dev),
+        torch.where(mm.valid, mm.idx, torch.full_like(mm.idx, N)), pt)
+    merged = torch.where(matched_pt >= 0, matched_pt, new_matched)
+    has = merged >= 0
+    Xw = m.pt_pos[torch.clamp(merged, 0, P - 1).long()]
+    obs = torch.cat([cur.xy, cur.ur[:, None]], dim=-1)
+    res = pose_opt.optimize_pose(cam, Tcw, Xw, obs, cur.level, has, cfg.level_sigma2)
+    final = torch.where(res.inliers, merged, torch.full_like(merged, INVALID))
+    return res.Tcw, final, res.n_inliers
 
 
 def keyframe_stats(cfg: SlamConfig, m: mapstate.MapState, ref_kf, cur: FrameData,

@@ -1,8 +1,9 @@
 """Synthetic world for the port's tests and `chip_smoke.py`: a textured
 ground plane with raised plates, rendered with exact ground-truth poses and
-depth (the part of `orb_slam2_tpu/utils/synthetic.py` the frame front end
-needs). The NumPy code is the reference's own, so renders from the same seed
-are identical in both packages. Host-side, NumPy only.
+depth, and camera trajectories (the part of `orb_slam2_tpu/utils/synthetic.py`
+the port's tests and smoke need). The NumPy code is the reference's own, so
+renders from the same seed are identical in both packages. Host-side, NumPy
+only.
 """
 from __future__ import annotations
 
@@ -209,5 +210,20 @@ def loop_trajectory(n_frames, radius=3.0, overshoot=0.3, spiral=0.0):
         r = radius * (1.0 + spiral * a / (2.0 * np.pi))
         T = np.eye(4)
         T[:3, 3] = [r * np.cos(a) - radius, r * np.sin(a), 0.0]
+        poses.append(T)
+    return poses
+
+
+def lateral_trajectory(n_frames, step=0.02, yaw_rate=0.0):
+    """Camera-to-world poses translating along +x, optional yaw."""
+    poses = []
+    for i in range(n_frames):
+        yaw = yaw_rate * i
+        R = np.array([[np.cos(yaw), 0, np.sin(yaw)],
+                      [0, 1, 0],
+                      [-np.sin(yaw), 0, np.cos(yaw)]])
+        T = np.eye(4)
+        T[:3, :3] = R
+        T[:3, 3] = [step * i, 0.002 * i, 0.001 * np.sin(i * 0.3)]
         poses.append(T)
     return poses

@@ -2,7 +2,7 @@
 """The JAX reference's numbers for `chip_smoke.py` (the PyTorch/CUDA port's
 smoke run), measured on the CPU with the reference package's XLA path.
 
-    env JAX_PLATFORMS=cpu python scripts/chip_smoke_reference.py
+    env JAX_PLATFORMS=cpu python scripts/chip_smoke_reference.py [--system-only]
 
 It renders chip_smoke's frames (the reference bench's first N_FRAMES poses,
 640x480, 1000 features, RGB-D), extracts them with the port's front end (as
@@ -20,6 +20,15 @@ snapshot (the jitted pass returns none of them); the script asserts that
 every field of its map equals `keyframe_pass`'s before it records the
 numbers. The port's parity test
 (`tests/test_torch_keyframe_pass.py`) uses the same stages.
+
+Then the `[system]` phase's numbers: the reference `SlamSystem` (loop
+closing off, `synth_vocabulary(10, 6)`, the natural keyframe policy) over
+the same frames, handed the port's frames through its frame-given tracking
+path (the stream's step patched to take the frame as its images, as
+`tests/test_torch_system.py` does): the state after every call, the
+keyframe frames and the ATE of a synchronous lap; a kidnap (state LOST, the
+render of pose KIDNAP_POSE) and its camera-centre error; a fresh system
+with pipeline_depth=3 and its flush, with the same records.
 """
 from __future__ import annotations
 
@@ -171,6 +180,50 @@ def event_numbers(st, m_after):
             int(m_after.n_points), int(m_after.n_keyframes)]
 
 
+def system_laps(jcfg, poses, jf):
+    """The reference SlamSystem's records for chip_smoke's [system] phase."""
+    import torch
+    import chip_smoke as cs
+    from orb_slam2_tpu.bow import vocabulary as jvoc
+    from orb_slam2_tpu.pipeline import system as jsystem
+    from orb_slam2_tpu.utils import trajectory as jtraj
+
+    voc = jvoc.synth_vocabulary(10, 6)
+    jts.full_tracking_step_from_images = \
+        lambda cfg, m, f, *rest: jts.full_tracking_step(cfg, m, f, *rest[:-1])
+
+    def track(s, f, ts):
+        if s.state == jsystem.OK and s.pipeline_depth > 0:
+            return s._track_stream(f, ts, "rgbd")
+        if s.state != jsystem.OK:
+            s._flush_pipeline()
+        return s._track(f, ts)
+
+    gt = [(i / jcfg.fps, T) for i, T in enumerate(poses)]
+    out = {}
+    for name, depth in (("sync", 0), ("stream", 3)):
+        s = jsystem.SlamSystem(jcfg, vocabulary=voc, enable_loop_closing=False,
+                               pipeline_depth=depth)
+        states = []
+        for i, f in enumerate(jf):
+            track(s, f, i / jcfg.fps)
+            states.append(int(s.state))
+        s.flush()
+        out[f"{name}_states"] = states
+        out[f"{name}_kf_frames"] = sorted(e["frame"] for e in s.metrics if e.get("kf"))
+        out[f"{name}_ate_m"] = round(jtraj.ate_rmse(s.get_trajectory(), gt), 6)
+        print(f"{name}: {len(s.get_trajectory())} frames tracked, keyframes at "
+              f"{out[f'{name}_kf_frames']}, ATE {out[f'{name}_ate_m']} m", flush=True)
+        if name == "sync":
+            s.state = jsystem.LOST
+            T = track(s, jf[cs.KIDNAP_POSE], 99.0)
+            assert T is not None, "the reference did not relocalize"
+            out["kidnap_kf"] = int(s.ref_kf)
+            out["kidnap_err_m"] = round(cs._centre_error(torch.from_numpy(np.array(T)), poses[0],
+                                                         poses[cs.KIDNAP_POSE]), 6)
+    return out
+
+
 def main():
     import torch
     import chip_smoke as cs
@@ -188,6 +241,10 @@ def main():
     tf = [tframe.make_frame_rgbd(torch.from_numpy(g), torch.from_numpy(d), tcfg)
           for g, d in frames]
     jf = [jax_frame(f) for f in tf]
+    if "--system-only" in sys.argv:
+        print(f"REFERENCE_SYSTEM = {system_laps(jcfg, poses, jf)}")
+        print(f"jax {jax.__version__}, {time.perf_counter() - t0:.0f} s")
+        return
     N = jcfg.max_keypoints
     eye = jnp.eye(4, dtype=jnp.float32)
     m = jmap.empty(jcfg.max_keyframes, jcfg.max_map_points, N)
@@ -229,6 +286,9 @@ def main():
     print(f"REFERENCE_LOCAL_INLIERS = {inliers}")
     print(f"REFERENCE_TRANS_ERR_M = {[round(e, 5) for e in errs]}")
     print(f"REFERENCE_EVENTS = {events}")
+    t1 = time.perf_counter()
+    print(f"REFERENCE_SYSTEM = {system_laps(jcfg, poses, jf)}")
+    print(f"the [system] laps: {time.perf_counter() - t1:.0f} s")
 
 
 if __name__ == "__main__":

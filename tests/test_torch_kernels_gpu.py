@@ -12,7 +12,8 @@ order, and the matching kernels decide integers by exact compares, so those
 comparisons are bit-exact. The pose kernels sum the edges in another order
 than their twins: K6 is held to Tcw within 1e-4 and equal inlier sets except
 at the chi2 threshold, K7 to the reference's own tolerance between its XLA
-and Pallas builds (H rtol 3e-4 atol 2e-3, b atol 2e-2). K4 (both gates)
+and Pallas builds (H rtol 3e-4 atol 2e-3, b atol 2e-2), and two K7
+launches equal bit for bit. K4 (both gates)
 and K8 (from the map's rows) decide integers from float32 values rounded as
 in their twins: bit-exact. K9 (the whole BA
 assembly) performs its twin's per-edge float32 operations and sums in the
@@ -281,11 +282,11 @@ def test_best_two_kernel_bit_exact(cuda, n, m, density):
     candidates (density 1: every node 0, the tracking fallback), invalid
     features, sources with node -1, near duplicates and ties."""
     args = _synthetic_node(np.random.default_rng(n + m), n, m, round(1 / density), cuda)
-    before = launch.LAUNCHES["best_two"]
+    before = launch.LAUNCHES["best_two_node"]
     got = cm.node_best_two(*args)
     want = cm.node_best_two_plain(*args)
     torch.cuda.synchronize()
-    assert launch.LAUNCHES["best_two"] == before + 1
+    assert launch.LAUNCHES["best_two_node"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int((got[0] < cm.BIG).sum()) > 0
@@ -327,6 +328,36 @@ def test_window_best_two_kernel_above_one_tile(cuda, m):
         assert torch.equal(g, w)
     for row, triple in expect.items():
         assert tuple(int(t[row]) for t in got) == triple, row
+
+
+def test_reloc_window_search_kernel_bit_exact(cuda):
+    """K4's window form as the relocalization rescue calls it
+    (`matching.search_by_projection_reloc`): octaves (-1, +1), no stereo
+    test (every source's right x -1), the targets' validity with the
+    already-matched keypoints taken out: bit-exact against the twin, and
+    the whole search's matches equal on both paths."""
+    from orb_slam2_tpu_torch.ops import matching
+    args, _ = _synthetic_proj_tiles(np.random.default_rng(12), cuda, p=2048, n=2048)
+    uv, radius, level, _, valid, desc, kp_xy, kp_level, kp_ur, kp_valid, kp_desc = args
+    already = torch.from_numpy(np.random.default_rng(13).random(2048) < 0.3).to(cuda)
+    k4 = (uv, radius, level, torch.full_like(radius, -1.0), valid, desc, kp_xy, kp_level,
+          kp_ur, (kp_valid & ~already).contiguous(), kp_desc, (-1, 1))
+    got, want = cm.window_best_two(*k4), cm.window_best_two_plain(*k4)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    angle = torch.from_numpy(np.random.default_rng(14).uniform(0, 360, 2048)
+                             .astype(np.float32)).to(cuda)
+    sf = tuple(1.2 ** i for i in range(8))
+    search = (uv, level, desc, valid, angle, kp_xy, kp_level, kp_desc, kp_valid, angle,
+              already, sf)
+    before = launch.LAUNCHES["best_two"]
+    mm = matching.search_by_projection_reloc(*search, th=10.0, orb_dist=100)
+    assert launch.LAUNCHES["best_two"] == before + 1
+    cpu = matching.search_by_projection_reloc(*(t.cpu() if torch.is_tensor(t) else t
+                                                for t in search), th=10.0, orb_dist=100)
+    assert torch.equal(mm.idx.cpu(), cpu.idx) and torch.equal(mm.valid.cpu(), cpu.valid)
+    assert int(mm.valid.sum()) > 100
 
 
 def _proj_inputs(rng, p, n, dev):
@@ -531,6 +562,49 @@ def test_pose_normal_eqs_kernel_within_tolerance(cuda):
         assert bool(torch.isfinite(H).all())
         torch.testing.assert_close(H, Hp, rtol=3e-4, atol=2e-3)
         torch.testing.assert_close(b, bp, rtol=3e-4, atol=2e-2)
+        torch.testing.assert_close(err, errp, rtol=3e-4, atol=0.0)
+
+
+@pytest.mark.parametrize("n", [1, 100, 2048, 5000])
+@pytest.mark.parametrize("case", ["valid", "weights_with_zeros", "rank_deficient",
+                                  "nan_point"])
+@pytest.mark.parametrize("robust", [True, False])
+def test_pose_normal_eqs_cluster_kernel(cuda, n, case, robust):
+    """K7 as one cluster of 8 CTAs: threads with no edge (E = 1, 100), one
+    edge per thread (2048) and edges looped past the cluster's width
+    (5000); a 0/1 mask, float weights with zeros, 2 valid edges (H of rank
+    4) and a NaN world point (err NaN on both sides), each robust and not:
+    within the twin's tolerance, one launch, and two launches equal bit for
+    bit (fixed-order sums, no atomics)."""
+    args, _ = _pose_scene(np.random.default_rng(80 + n), n, True, 0.0 if n < 10 else 0.2,
+                          cuda)
+    cam, T0, Xw, obs, inv_s2, st, valid = args
+    rng = np.random.default_rng(90 + n)
+    mask = valid.to(torch.float32)
+    if case == "weights_with_zeros":
+        w = rng.uniform(0.1, 2.0, n) * (rng.random(n) < 0.7)
+        mask = torch.from_numpy(w.astype(np.float32)).to(cuda)
+    elif case == "rank_deficient":
+        mask = torch.zeros_like(mask)
+        mask[[0, n - 1]] = 1.0
+    elif case == "nan_point":
+        Xw[n // 2] = float("nan")
+    before = launch.LAUNCHES["pose_normal_eqs"]
+    got = cp.pose_normal_eqs(cam, T0, Xw, obs, inv_s2, st, mask, robust)
+    again = cp.pose_normal_eqs(cam, T0, Xw, obs, inv_s2, st, mask, robust)
+    H, b, err = got
+    Hp, bp, errp = cp.pose_normal_eqs_plain(cam, T0, Xw, obs, inv_s2, st, mask, robust)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["pose_normal_eqs"] == before + 2
+    for a, c in zip(got, again):
+        assert torch.equal(a.nan_to_num(), c.nan_to_num())
+        assert torch.equal(a.isnan(), c.isnan())
+    torch.testing.assert_close(H, Hp, equal_nan=True, rtol=3e-4, atol=2e-3)
+    torch.testing.assert_close(b, bp, equal_nan=True, rtol=3e-4, atol=2e-2)
+    if case == "nan_point":
+        assert bool(err.isnan()) and bool(errp.isnan())
+    else:
+        assert bool(torch.isfinite(H).all())
         torch.testing.assert_close(err, errp, rtol=3e-4, atol=0.0)
 
 
