@@ -62,10 +62,31 @@ Phases (each prints its result; any failure exits non-zero):
                and its node form at 2048 x 2048, K5 at fusion's union and
                at N = 16,384, K8 as the event's search unit, K6 split by
                its schedule (1x0, 2x0, 1x10, 4x10).
+7. loop      — loop closing through SlamSystem with its defaults (loop
+               closing on, 4 amortized global-BA chunks) on the fig8-rgbd
+               row of the reference's evaluation (560 frames of a figure
+               eight over PlateWorld with 400 plates, ImperfectCamera), then
+               flush(): the loops closed, each closure's keyframe and
+               candidate, the frames tracked, the ATE, a finite map and the
+               loop edges against the JAX reference's SlamSystem on the same
+               frames (REFERENCE_LOOP); the loop path's kernel inputs
+               against the twins bit for bit (K4's window form with open
+               octaves and at the loop projection count, its node form on
+               all pairs, K5 in the loop fusion, K9 at C = 128 and E =
+               196,608); a second lap (the closure warm) and a third under
+               torch's deterministic algorithms, both identical to the
+               first bit for bit; the host syncs of frames without a
+               keyframe equal to a lap with loop closing off; PCG against
+               the dense Schur solve on the final map's global BA problem.
+               Timed: track_rgbd per frame (without a keyframe, with one,
+               with a closure), loop detection, compute_sim3, correct_loop's
+               stages, each global-BA chunk (the first lap's and the
+               second's), K9 at the global BA's shape.
 The second-to-last line is the kernels' JSON record (K4's two forms apart:
 best_two the window form, best_two_node the node form); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
+import inspect
 import itertools
 import json
 import os
@@ -96,12 +117,13 @@ from orb_slam2_tpu_torch.ops import cuda_match as cm
 from orb_slam2_tpu_torch.ops import cuda_pose as cp
 from orb_slam2_tpu_torch.ops import extractor as ex
 from orb_slam2_tpu_torch.ops import orient_brief, select
-from orb_slam2_tpu_torch.pipeline import mapping_ops, system, tracking_step
+from orb_slam2_tpu_torch.pipeline import loop_closing, mapping_ops, system, tracking_step
 from orb_slam2_tpu_torch.pipeline.frame import make_frame_rgbd
-from orb_slam2_tpu_torch.solvers import schur_ba
+from orb_slam2_tpu_torch.solvers import pcg_ba, schur_ba
 from orb_slam2_tpu_torch.utils import trajectory
 from orb_slam2_tpu_torch.utils.config import SlamConfig, SENSOR_RGBD
-from orb_slam2_tpu_torch.utils.synthetic import PlateWorld, loop_trajectory
+from orb_slam2_tpu_torch.utils.synthetic import (ImperfectCamera, PlateWorld,
+                                                 figure_eight_trajectory, loop_trajectory)
 
 # What the reference package (orb_slam2_tpu, XLA path, use_pallas=0) gives on
 # the frames below, rendered and quantized exactly as here, with the same
@@ -128,6 +150,18 @@ REFERENCE_SYSTEM = {
 # per keyframe event (frames 3, 6, ..., 30): points triangulated, points
 # replaced by fusion, BA outlier observations erased, keyframes culled, then
 # valid points and valid keyframes after the event
+# The reference SlamSystem with its defaults (loop closing on, 4 amortized GBA
+# chunks, the natural keyframe policy, synth_vocabulary(10, 6)) over the
+# [loop] phase's figure eight (render_loop_frames), handed the port's frames,
+# then flush(): the loops closed and each closure's keyframe sequence number,
+# frames of its keyframe and candidate and of the candidate's covisible
+# keyframes; the frames tracked, the keyframes inserted and the ATE.
+# `scripts/chip_smoke_reference.py --loop-only`.
+REFERENCE_LOOP = {'loops': 1, 'closures': [{'kf_seq': 16, 'kf_frame': 315, 'cand_frame': 16,
+                                            'cand_neighbour_frames': [0, 11, 12, 22, 29, 38, 51,
+                                                                      70, 91]}],
+                  'tracked': 560, 'keyframes_inserted': 27, 'keyframes': 27, 'points': 3027,
+                  'loop_edge_frames': [[315, 16]], 'ate_m': 0.034936}
 REFERENCE_EVENTS = [
     [3, 186, 0, 0, 1186, 2], [2, 295, 136, 0, 1138, 3], [3, 331, 150, 0, 1193, 4],
     [5, 341, 226, 0, 1247, 5], [3, 345, 274, 0, 1365, 6], [4, 331, 293, 0, 1514, 7],
@@ -156,6 +190,14 @@ KF_EVERY = 3                # a keyframe forced on every 3rd frame (bench.py:118
 N_RECORD = 7                # frames of the recording run (events at 3 and 6, BA on 6)
 KIDNAP_POSE = 12            # the [system] phase's kidnap: the render of this mapped pose
 STREAM_DEPTH = 3            # the [system] phase's stream lap (bench.py's default depth)
+LOOP_FRAMES = 560           # the [loop] phase's figure eight (EVAL.md's fig8-rgbd row)
+LOOP_KF_SLACK = 3           # keyframes a closure may move from the reference's (covis_consistency_th)
+LOOP_TRACKED_FLOOR = 0.95   # fraction of the frames the [loop] lap must track
+PCG_LM_ITERS = 10           # LM iterations of the PCG / dense comparison (run_global_ba's)
+PCG_POSE_TOL = 5e-3         # their poses, per entry of Tcw (tests/test_pcg_ba.py:13-22)
+PCG_POINT_TOL = 1e-2        # their points' median distance, m (the same test)
+PCG_STEP_CG = 200           # CG iterations of the one-step comparison
+PCG_STEP_RTOL = 1e-3        # one LM step: each solver's camera step against the exact one
 SYSTEM_KF_SLACK = 2         # frames a keyframe may move from the reference's: the maps part
                             # by <= 0.23 cm from the forced run's event 6 on (K6's float32 sums)
 POSE_TOL = 1e-4             # K6 against its twin, per entry of Tcw
@@ -250,6 +292,26 @@ def render_frames():
     for T in poses:
         gray, depth = world.render_with_depth(T)
         frames.append((np.clip(np.round(gray), 0, 255).astype(np.uint8), depth))
+    return poses, frames
+
+
+def render_loop_frames(n=None):
+    """The fig8-rgbd sequence of the reference's evaluation
+    (`examples/eval_synthetic_hard.py:238-250`): PlateWorld (z0 5, extent 14,
+    400 plates, seed 5), figure_eight_trajectory(560, radius=3.2) and
+    ImperfectCamera(noise_sigma=3.0), the first `n` poses (all by default).
+    The clean renders run on a few threads; the camera's noise is drawn in
+    frame order, as a sequential render draws it. Gray stays float32, as the
+    evaluation hands it to the system (quantized to uint8 the sequence
+    drifts less and closes no loop, PERF.md section 4). Returns (poses,
+    frames)."""
+    from concurrent.futures import ThreadPoolExecutor
+    world = PlateWorld(FX, FX, W / 2, H / 2, W, H, z0=5.0, extent=14.0, n_plates=400, seed=5)
+    poses = figure_eight_trajectory(LOOP_FRAMES, radius=3.2)[:n]
+    cam = ImperfectCamera(world, noise_sigma=3.0)
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        clean = list(pool.map(world.render_with_depth, poses))
+    frames = [(cam.degrade(img, i), depth) for i, (img, depth) in enumerate(clean)]
     return poses, frames
 
 
@@ -1585,7 +1647,7 @@ def _check_lap(name, s, states, poses, cfg, ref):
     return kf, ate
 
 
-def system_phase(cfg, poses, frames, dev, card):
+def system_phase(cfg, poses, frames, voc, dev, card):
     """The port's entry point as a user calls it: SlamSystem.track_rgbd over
     the sequence's frames with the natural keyframe policy and the 10^6-word
     vocabulary (a synchronous lap), a kidnap (state LOST, then the render of
@@ -1595,9 +1657,6 @@ def system_phase(cfg, poses, frames, dev, card):
     the pipelined stream at depth 3, and the trajectory through save_tum /
     load_tum. Counts set to 0 before, read after. Returns the launches and
     the phase's timings."""
-    voc = synth_vocabulary(10, 6, device=dev)
-    log(f"[system] synth_vocabulary(10, 6): {voc.n_nodes} nodes, {voc.n_words} words on the "
-        f"card ({_nbytes(voc.children, voc.centroids, voc.word_id, voc.word_weight) / 1e6:.1f} MB)")
     launch.reset_launches()
     times = []
     s, states = _system_lap(cfg, voc, frames, 0, dev, times)
@@ -1673,6 +1732,506 @@ def system_phase(cfg, poses, frames, dev, card):
     return launches, res
 
 
+# ---------------------------------------------------------------------------
+# [loop]: loop closing through SlamSystem on the figure eight
+# ---------------------------------------------------------------------------
+
+LOOP_STAGES = (("detect", "detect_loop_dispatch"), ("bow_gate", "bow_gate"),
+               ("compute_sim3", "compute_sim3"),
+               ("correct_loop", "correct_loop"), ("propagate", "_propagate_and_fuse"),
+               ("fuse", "fuse_loop_points"), ("essential_graph", "_essential_graph"),
+               ("gba_chunk", "run_global_ba"))
+LOOP_RECORDED = ("window_open", "window_loop_projection", "node_all_pairs", "proj_loop_fusion",
+                 "ba_gba")
+
+
+def _named(fn, args):
+    """A kernel wrapper's positional arguments by parameter name."""
+    return inspect.signature(fn).bind(*args).arguments
+
+
+@contextmanager
+def loop_instruments(cfg, stages, rec, k9_gba):
+    """Time each loop-closing stage (synchronized wall ms, in `stages` as
+    (name, closures so far, ms)), record the first inputs the loop path
+    hands K4 (window form with open octaves, its loop-projection count, the
+    node form on all pairs), K5 (the loop fusion) and K9 at C = capacity_kf
+    into `rec`, and count K9's launches inside run_global_ba (the launch
+    counter's growth over each call) in `k9_gba`. The stages inside
+    compute_sim3 / correct_loop / run_global_ba mark where a kernel call
+    comes from; a kernel's arguments are read by name."""
+    where = []
+    closures = [0]
+    saved = {name: getattr(loop_closing, fn) for name, fn in LOOP_STAGES}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            where.append(name)
+            k9_before = launch.LAUNCHES["ba_edge"]
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+            finally:
+                where.pop()
+            if name == "gba_chunk":
+                k9_gba[0] += launch.LAUNCHES["ba_edge"] - k9_before
+            stages.append((name, closures[0], (time.perf_counter() - t0) * 1e3))
+            if name == "correct_loop":
+                closures[0] += 1
+            return out
+        return call
+
+    kernels = {"window": (cm, "window_best_two"), "node": (cm, "node_best_two"),
+               "proj": (cm, "projection_best_two"), "k9": (cb, "ba_assemble")}
+    k_saved = {k: getattr(mod, name) for k, (mod, name) in kernels.items()}
+
+    def keep(key, args):
+        if key not in rec:
+            rec[key] = args
+
+    def window(*args):
+        if _named(k_saved["window"], args)["octaves"] == (cm.OPEN, cm.OPEN):
+            keep("window_open", args)
+        elif where and where[-1] == "compute_sim3":
+            keep("window_loop_projection", args)
+        return k_saved["window"](*args)
+
+    def node(*args):
+        if where and where[-1] == "compute_sim3":
+            keep("node_all_pairs", args)
+        return k_saved["node"](*args)
+
+    def proj(*args):
+        if "fuse" in where:
+            keep("proj_loop_fusion", args)
+        return k_saved["proj"](*args)
+
+    def k9(*args):
+        if "gba_chunk" in where:
+            C = _named(k_saved["k9"], args)["poses"].shape[0]
+            if C != cfg.max_keyframes:
+                raise AssertionError(f"[loop] global BA assembled at C={C}")
+            keep("ba_gba", args)
+        return k_saved["k9"](*args)
+
+    for name, fn in LOOP_STAGES:
+        setattr(loop_closing, fn, timed(name, saved[name]))
+    for k, f in (("window", window), ("node", node), ("proj", proj), ("k9", k9)):
+        setattr(kernels[k][0], kernels[k][1], f)
+    try:
+        yield
+    finally:
+        for name, fn in LOOP_STAGES:
+            setattr(loop_closing, fn, saved[name])
+        for k, (mod, name) in kernels.items():
+            setattr(mod, name, k_saved[k])
+
+
+def _loop_lap(cfg, voc, frames, dev, times=None, syncs=None, closure_nb=None):
+    """A fresh SlamSystem with its defaults (loop closing on, 4 amortized
+    GBA chunks) over the frames, then flush(). With `times`, each call's
+    wall ms; with `syncs`, each call's host syncs (torch's sync debug mode);
+    with `closure_nb`, each closure's candidate's covisible keyframes' frames."""
+    s = system.SlamSystem(cfg, vocabulary=voc, device=dev)
+    saved = loop_closing.correct_loop
+    if closure_nb is not None:
+        def correct(cfg_, m, kf_id, cand_id, Scm, **kw):
+            nb = ((m.covis[cand_id] > 0) & m.kf_valid).cpu().numpy()
+            fid = m.kf_frame_id.cpu().numpy()
+            closure_nb.append(sorted(int(f) for f in fid[np.nonzero(nb)[0]]))
+            return saved(cfg_, m, kf_id, cand_id, Scm, **kw)
+        loop_closing.correct_loop = correct
+    try:
+        for i, (gray, depth_img) in enumerate(frames):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if syncs is not None:
+                    torch.cuda.set_sync_debug_mode(1)
+                t0 = time.perf_counter()
+                try:
+                    s.track_rgbd(gray, depth_img, i / cfg.fps)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                if times is not None:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            if syncs is not None:
+                syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        s.flush()
+        torch.cuda.synchronize()
+    finally:
+        loop_closing.correct_loop = saved
+    return s
+
+
+def _loop_check(cfg, s, poses, closure_nb, ref):
+    """The run against the reference's: the loops closed, each at the
+    reference's keyframe sequence number within LOOP_KF_SLACK with the
+    reference's candidate or one of its covisible keyframes, the frames
+    tracked, the ATE, a finite map, the loop edges. Returns the ATE."""
+    gt = [(i / cfg.fps, T) for i, T in enumerate(poses)]
+    traj = s.get_trajectory()
+    ate = trajectory.ate_rmse(traj, gt)
+    got = s.loop_closures
+    log(f"[loop] {len(traj)} of {len(poses)} frames tracked, {s._kf_seq_host} keyframes "
+        f"inserted, {int(s.m.n_keyframes)} in the map, {int(s.m.n_points)} points; "
+        f"{s.n_loops_closed} loops closed at "
+        f"{[(c['kf_seq'], c['kf_frame'], c['cand_frame']) for c in got]} (keyframe sequence "
+        f"number, frame, candidate's frame; reference {ref['loops']} at "
+        f"{[(c['kf_seq'], c['kf_frame'], c['cand_frame']) for c in ref['closures']]}); ATE "
+        f"{ate * 100:.3f} cm (reference {ref['ate_m'] * 100:.3f} cm)")
+    if s.n_loops_closed != ref["loops"]:
+        raise AssertionError(f"[loop] {s.n_loops_closed} loops closed, the reference "
+                             f"{ref['loops']}")
+    for c, r, nb in zip(got, ref["closures"], closure_nb):
+        if abs(c["kf_seq"] - r["kf_seq"]) > LOOP_KF_SLACK:
+            raise AssertionError(f"[loop] closure at keyframe {c['kf_seq']}, the reference's at "
+                                 f"{r['kf_seq']} (within {LOOP_KF_SLACK} required)")
+        if not (c["cand_frame"] == r["cand_frame"] or c["cand_frame"] in
+                r["cand_neighbour_frames"] or r["cand_frame"] in nb):
+            raise AssertionError(f"[loop] closure candidate at frame {c['cand_frame']} is neither "
+                                 f"the reference's ({r['cand_frame']}) nor covisible with it")
+    if len(traj) < LOOP_TRACKED_FLOOR * len(poses):
+        raise AssertionError(f"[loop] {len(traj)} of {len(poses)} frames tracked")
+    if not ate <= 2 * ref["ate_m"] + 0.01:
+        raise AssertionError(f"[loop] ATE {ate:.4f} m > 2 x the reference's {ref['ate_m']:.4f} "
+                             f"m + 1 cm")
+    bad = _map_finite(s.m)
+    if bad:
+        raise AssertionError(f"[loop] non-finite {bad} in the map")
+    edges = {tuple(e) for e in s.m.loop_edges.cpu().tolist()}
+    if any((c["kf"], c["cand"]) not in edges for c in got):
+        raise AssertionError(f"[loop] loop_edges {sorted(edges)} lack a closure's pair")
+    return ate
+
+
+def _loop_kernel_parity(rec, errs):
+    """The loop path's kernel inputs against the twins, bit for bit: K4's
+    window form with open octaves (SearchBySim3) and at the loop projection
+    count, its node form on all pairs (SearchByBoW), K5 in the loop fusion,
+    every field of K9's assembly at C = capacity_kf."""
+    missing = [k for k in LOOP_RECORDED if k not in rec]
+    if missing:
+        raise AssertionError(f"[loop] the loop path handed no input to {missing}")
+    for key, kernel, twin, name in (
+            ("window_open", cm.window_best_two, cm.window_best_two_plain, "best_two"),
+            ("window_loop_projection", cm.window_best_two, cm.window_best_two_plain, "best_two"),
+            ("node_all_pairs", cm.node_best_two, cm.node_best_two_plain, "best_two_node"),
+            ("proj_loop_fusion", cm.projection_best_two, cm.projection_best_two_plain,
+             "proj_match")):
+        args = rec[key]
+        for a, b, what in zip(kernel(*args), twin(*args), ("best", "index", "second")):
+            _require_equal(f"[loop] {name} {key} {what}", a, b)
+    k9 = rec["ba_gba"]
+    got, want = cb.ba_assemble(*k9), cb.ba_assemble_plain(*k9)
+    a9 = _named(cb.ba_assemble, k9)
+    C9, E9 = a9["poses"].shape[0], a9["edge_mask"].numel()
+    _lin_equal(f"[loop] K9 at C={C9}, E={E9}, robust off", schur_ba.Lin(*got),
+               schur_ba.Lin(*want), errs)
+
+    def sizes(key, fn, src, dst):
+        a = _named(fn, rec[key])
+        return f"{a[src].shape[0]} x {a[dst].shape[0]}"
+    log(f"[loop] K4 (window form, open octaves: "
+        f"{sizes('window_open', cm.window_best_two, 'uv', 'kp_xy')}; the loop projection count "
+        f"{sizes('window_loop_projection', cm.window_best_two, 'uv', 'kp_xy')}), K4's node "
+        f"form on all pairs ({sizes('node_all_pairs', cm.node_best_two, 'desc_a', 'desc_b')}), "
+        f"K5 in the loop fusion "
+        f"({sizes('proj_loop_fusion', cm.projection_best_two, 'uv', 'kp_xy')}) and K9 at "
+        f"C={C9}, E={E9} (every field) equal their twins bit for bit")
+
+
+def _ba_error(cfg, cam, prob, poses, points):
+    """The global BA objective (sum of chi2 over the problem's edges, robust
+    kernel off) at (poses, points), by one assembly."""
+    sigma2 = torch.tensor(cfg.level_sigma2, dtype=torch.float32, device=points.device)
+    inv_sigma2 = 1.0 / sigma2[torch.clamp(prob.obs_level, 0, len(cfg.level_sigma2) - 1).long()]
+    C = prob.poses.shape[0]
+    mask = (prob.obs_cam >= 0) & prob.pt_valid[:, None] & \
+        prob.cam_valid[torch.clamp(prob.obs_cam, 0, C - 1).long()]
+    edges = schur_ba._edges(prob, inv_sigma2)
+    return float(schur_ba._assemble(cam, prob, edges, poses, points, mask.to(torch.float32),
+                                     False).err)
+
+
+def _gba_step(cfg, cam, prob, lam):
+    """One LM step of the global BA at the problem's state with damping
+    lam: the camera step of the dense Schur solve, of PCG at 50 (as
+    run_global_ba runs it) and at PCG_STEP_CG iterations, each against the
+    exact step of the same linearization (the reduced camera system formed
+    explicitly in float64 from K9's pieces, with exact 3x3 inverses).
+    Returns the relative distances, each step's, and the extreme
+    eigenvalues of that system."""
+    C = prob.poses.shape[0]
+    dev = prob.points.device
+    sigma2 = torch.tensor(cfg.level_sigma2, dtype=torch.float32, device=dev)
+    inv_sigma2 = 1.0 / sigma2[torch.clamp(prob.obs_level, 0, len(cfg.level_sigma2) - 1).long()]
+    mask = (prob.obs_cam >= 0) & prob.pt_valid[:, None] & \
+        prob.cam_valid[torch.clamp(prob.obs_cam, 0, C - 1).long()]
+    edges = schur_ba._edges(prob, inv_sigma2)
+    lin = schur_ba._assemble(cam, prob, edges, prob.poses, prob.points,
+                             mask.to(torch.float32), False)
+    lam32 = torch.full((), lam, dtype=torch.float32, device=dev)
+    free = prob.cam_valid & ~prob.cam_fixed
+    f6 = free.repeat_interleave(6)
+
+    Q, O = lin.chi2.shape
+    lin64 = schur_ba.Lin(*(a.double() if a.is_floating_point() else a for a in lin))
+    lam64 = lam32.double()
+    Hpp = torch.where(lin.pt_on[:, None, None], schur_ba._damped(lin64.Hpp, lam64),
+                      torch.eye(3, dtype=torch.float64, device=dev))
+    W = torch.einsum("qoc,qoij->ciqj", edges.onehot.double().reshape(Q, O, C), lin64.We)
+    WH = torch.einsum("ciqj,qjk->ciqk", W, torch.linalg.inv(Hpp)).reshape(C * 6, Q * 3)
+    S = torch.block_diag(*schur_ba._damped(lin64.Hcc, lam64)) - WH @ W.reshape(C * 6, Q * 3).T
+    b = lin64.bc.reshape(-1) - WH @ lin64.bp.reshape(-1)
+    S, b = S[f6][:, f6], b[f6]
+    exact = torch.linalg.solve(S, b)
+    eig = torch.linalg.eigvalsh(S)
+    del W, WH
+
+    pre = pcg_ba._precompute(lin, lam32)
+    rhs = pcg_ba._reduced_rhs(pre, edges, free)
+    steps = {"dense": schur_ba._solve_step(prob, edges, lin, lam32)[0],
+             "pcg_50": pcg_ba._pcg(pre, edges, rhs, free, 50),
+             f"pcg_{PCG_STEP_CG}": pcg_ba._pcg(pre, edges, rhs, free, PCG_STEP_CG)}
+    steps = {k: v.reshape(-1)[f6].double() for k, v in steps.items()}
+    rel = {k: float((v - exact).norm() / exact.norm()) for k, v in steps.items()}
+    rel[f"pcg_{PCG_STEP_CG}_vs_dense"] = float(
+        (steps[f"pcg_{PCG_STEP_CG}"] - steps["dense"]).norm() / steps["dense"].norm())
+    return rel, steps, (float(eig[0]), float(eig[-1]))
+
+
+def _pcg_against_dense(cfg, m, dev, card):
+    """PCG on the implicit Schur complement (`pcg_ba.solve_ba_pcg`) against
+    the dense Schur solve (`schur_ba.solve_ba`) on the global BA problem of
+    map m (the bench's capacities keep run_global_ba on the dense branch,
+    so this puts pcg_ba on the card):
+    - one LM step at LM's first damping (1e-4): both solvers' steps within
+      PCG_STEP_RTOL of the exact step of the same linearization (PCG at
+      PCG_STEP_CG iterations), i.e. the same reduced system;
+    - the same at LM's least damping (1e-9), where the point blocks of
+      points seen once without depth are singular in float32: the dense
+      step finite (the distances reported);
+    - run_global_ba's PCG_LM_ITERS LM iterations each (PCG at its 50 CG
+      iterations a step): the poses within PCG_POSE_TOL and the points'
+      median distance below PCG_POINT_TOL (tests/test_pcg_ba.py:13-22).
+    Returns the numbers."""
+    prob = loop_closing.global_ba_problem(cfg, m)
+    cam = cfg.camera(dev)
+    free = prob.cam_valid & ~prob.cam_fixed
+    res = {}
+    for lam in (1e-4, 1e-9):
+        rel, steps, eig = _gba_step(cfg, cam, prob, lam)
+        finite = bool(torch.isfinite(steps["dense"]).all())
+        res[f"step_lam_{lam:g}"] = {**rel, "dense_finite": finite, "eig_min": eig[0],
+                                    "eig_max": eig[1]}
+        log(f"[loop] {card}: one global BA step at lambda {lam:g} (the float64 reduced system's "
+            f"eigenvalues {eig[0]:.4g} .. {eig[1]:.4g}), each camera step's distance from the "
+            f"exact one, relative: " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
+        if not finite:
+            raise AssertionError(f"[loop] the dense global BA step at lambda {lam:g} is not "
+                                 f"finite: {rel}")
+        if lam == 1e-4 and not (rel["dense"] <= PCG_STEP_RTOL and
+                                rel[f"pcg_{PCG_STEP_CG}"] <= PCG_STEP_RTOL):
+            raise AssertionError(f"[loop] PCG and the dense solve part on one global BA step "
+                                 f"(<= {PCG_STEP_RTOL} of the exact step required): {rel}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = schur_ba.solve_ba(cam, prob, cfg.level_sigma2, iters_a=PCG_LM_ITERS, iters_b=0,
+                              robust=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pcg = pcg_ba.solve_ba_pcg(cam, prob, cfg.level_sigma2, n_iters=PCG_LM_ITERS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    cam_diff = (pcg.poses - dense.poses)[free].abs().amax(dim=(1, 2))
+    res.update({"dense_ms": (t1 - t0) * 1e3, "pcg_ms": (t2 - t1) * 1e3,
+                "err_start": _ba_error(cfg, cam, prob, prob.poses, prob.points),
+                "err_dense": _ba_error(cfg, cam, prob, dense.poses, dense.points),
+                "err_pcg": _ba_error(cfg, cam, prob, pcg.poses, pcg.points),
+                "pose_diff": float(cam_diff.max()),
+                "point_diff_median_m": float(
+                    (pcg.points - dense.points)[prob.pt_valid].norm(dim=-1).median()),
+                "dense_moved": float((dense.poses - prob.poses)[free].abs().max())})
+    log(f"[loop] {card}: PCG (50 CG iterations a step) against the dense Schur solve on the "
+        f"final map's global BA (C={prob.poses.shape[0]}, {int(free.sum())} free cameras, "
+        f"{int(prob.pt_valid.sum())} points, {PCG_LM_ITERS} LM iterations each): objective "
+        f"{res['err_start']:.2f} -> dense {res['err_dense']:.3f}, PCG {res['err_pcg']:.3f}; "
+        f"poses max |diff| {res['pose_diff']:.3e} (<= {PCG_POSE_TOL} required; the dense solve "
+        f"moved them by up to {res['dense_moved']:.3f}); points median distance "
+        f"{res['point_diff_median_m']:.3e} m (< {PCG_POINT_TOL} required); dense "
+        f"{res['dense_ms']:.1f} ms, PCG {res['pcg_ms']:.1f} ms")
+    if not (res["pose_diff"] <= PCG_POSE_TOL and res["point_diff_median_m"] < PCG_POINT_TOL):
+        raise AssertionError(f"[loop] PCG parts from the dense solve: {res}")
+    return res
+
+
+def _median(xs):
+    return statistics.median(xs) if xs else None
+
+
+def loop_phase(cfg, voc, dev, card, errs):
+    """The port's loop closing through SlamSystem.track_rgbd on the
+    figure eight: a timed lap (counts set to 0 before, read after), the
+    checks against REFERENCE_LOOP, the loop path's kernel inputs against
+    the twins, a second lap (its stages timed: the closure warm) and a
+    third under torch's deterministic algorithms (both the same poses and
+    map bit for bit), the per-frame host syncs against a lap with loop
+    closing off, and PCG against the dense Schur solve on the final map's
+    global BA problem. Returns (launches, K9's GBA-shape timing, the
+    phase's results)."""
+    t0 = time.perf_counter()
+    poses, frames = render_loop_frames()
+    log(f"[loop] rendered the figure eight: {len(frames)} RGB-D frames {W}x{H} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    stages, rec, k9_gba, times, syncs, closure_nb = [], {}, [0], [], [], []
+    launch.reset_launches()
+    t0 = time.perf_counter()
+    with loop_instruments(cfg, stages, rec, k9_gba):
+        s = _loop_lap(cfg, voc, frames, dev, times, syncs, closure_nb)
+    lap_s = time.perf_counter() - t0
+    launches = dict(launch.LAUNCHES)
+    ate = _loop_check(cfg, s, poses, closure_nb, REFERENCE_LOOP)
+    log(f"[loop] launches over the lap: {launches}; K9 at C={cfg.max_keyframes}: "
+        f"{k9_gba[0]}")
+    missing = [k for k in ("best_two", "best_two_node", "proj_match", "pose_lm", "ba_edge")
+               if not launches[k]]
+    if missing:
+        raise AssertionError(f"[loop] kernels never launched: {missing}")
+    if k9_gba[0] < cfg.gba_async_chunks * s.n_loops_closed:
+        raise AssertionError(f"[loop] K9 at C={cfg.max_keyframes} launched {k9_gba[0]} times "
+                             f"for {s.n_loops_closed} closures (at least "
+                             f"{cfg.gba_async_chunks} each required)")
+    _loop_kernel_parity(rec, errs)
+
+    # the lap again, its stages timed: the process's second closure, warm
+    # (and the same trajectory and map bit for bit)
+    stages2 = []
+    with loop_instruments(cfg, stages2, {}, [0]):
+        warm = _loop_lap(cfg, voc, frames, dev)
+    if _same_map(warm.m, s.m) or warm.loop_closures != s.loop_closures:
+        raise AssertionError(f"[loop] a second lap differs in {_same_map(warm.m, s.m)}")
+    del warm
+
+    # the lap again under torch's deterministic algorithms: the same
+    # trajectory, closures and map bit for bit, and no operation without a
+    # deterministic implementation
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            again = _loop_lap(cfg, voc, frames, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    offenders = Counter(str(w.message).split(".")[0][:90] for w in caught
+                        if "determinis" in str(w.message))
+    diff = _same_map(again.m, s.m)
+    ta, tb = s.get_trajectory(), again.get_trajectory()
+    if len(ta) != len(tb) or any(not np.array_equal(a, b) for (_, a), (_, b) in zip(ta, tb)):
+        diff.append("trajectory")
+    if again.loop_closures != s.loop_closures:
+        diff.append("loop closures")
+    if diff or offenders:
+        raise AssertionError(f"[loop] a second lap under torch.use_deterministic_algorithms "
+                             f"differs in {diff}; operations without a deterministic "
+                             f"implementation: {dict(offenders)}")
+    log(f"[loop] a second lap under torch.use_deterministic_algorithms: the trajectory, the "
+        f"closures and the map ({len(s.m)} fields) identical bit for bit; no operation "
+        f"without a deterministic implementation")
+
+    # no new host sync on the per-frame path: a lap with loop closing off,
+    # up to the first closure, syncs as often on each frame without a keyframe
+    kf_frames = {e["frame"] for e in s.metrics if e.get("kf")}
+    first = min([c["kf_frame"] for c in s.loop_closures] + [len(frames)])
+    off_syncs = []
+    off = system.SlamSystem(cfg, vocabulary=voc, enable_loop_closing=False, device=dev)
+    for i, (gray, depth_img) in enumerate(frames[:first]):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode(1)
+            try:
+                off.track_rgbd(gray, depth_img, i / cfg.fps)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        off_syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+    off_kf = {e["frame"] for e in off.metrics if e.get("kf")}
+    plain = [i for i in range(1, first) if i not in kf_frames and i not in off_kf]
+    moved = [i for i in plain if syncs[i] != off_syncs[i]]
+    log(f"[loop] host syncs per frame without a keyframe, loop closing on / off, frames "
+        f"1-{first - 1}: median {_median([syncs[i] for i in plain])} / "
+        f"{_median([off_syncs[i] for i in plain])}, max {max(syncs[i] for i in plain)} / "
+        f"{max(off_syncs[i] for i in plain)} over {len(plain)} frames; keyframe frames "
+        f"{sorted(kf_frames & set(range(first)))} / {sorted(off_kf)}")
+    if moved:
+        raise AssertionError(f"[loop] loop closing changed the host syncs of frames without a "
+                             f"keyframe: {[(i, syncs[i], off_syncs[i]) for i in moved[:8]]}")
+
+    # timings
+    closure_frames = {c["kf_frame"] for c in s.loop_closures}
+    at = {"plain": [t for i, t in enumerate(times) if i and i not in kf_frames],
+          "keyframe": [t for i, t in enumerate(times) if i in kf_frames - closure_frames],
+          "closure": [times[f] for f in sorted(closure_frames)]}
+
+    def stage(name, closure=None, lap=stages):
+        return [ms for n, c, ms in lap if n == name and (closure is None or c == closure)]
+
+    chunks = stage("gba_chunk")
+    res = {"track_ms_median": _median(at["plain"]),
+           "keyframe_track_ms_median": _median(at["keyframe"]),
+           "closure_track_ms": at["closure"], "lap_s": lap_s,
+           "detect_ms_median": _median(stage("detect")), "detections": len(stage("detect")),
+           "compute_sim3_ms": stage("compute_sim3"),
+           "correct_loop_ms": stage("correct_loop"),
+           "propagate_and_fuse_ms": [a + b for a, b in zip(stage("propagate"), stage("fuse"))],
+           "essential_graph_ms": stage("essential_graph"), "gba_chunk_ms": chunks,
+           "loops": s.n_loops_closed, "ate_m": ate, "k9_gba_launches": k9_gba[0], "keyframes_inserted": s._kf_seq_host}
+    for k in range(s.n_loops_closed):
+        res[f"closure_{k + 1}_stages_ms"] = {n: sum(stage(n, k)) for n, _ in LOOP_STAGES
+                                            if n not in ("detect", "gba_chunk")}
+        res[f"closure_{k + 1}_warm_stages_ms"] = {
+            n: sum(stage(n, k, stages2)) for n, _ in LOOP_STAGES
+            if n not in ("detect", "gba_chunk")}
+    res["warm_gba_chunk_ms"] = stage("gba_chunk", lap=stages2)
+    res["warm_detect_ms_median"] = _median(stage("detect", lap=stages2))
+    log(f"[loop] {card}: track_rgbd median {res['track_ms_median']:.2f} ms per frame "
+        f"({len(at['plain'])} frames without a keyframe), {res['keyframe_track_ms_median']:.2f} "
+        f"ms per keyframe frame without a closure ({len(at['keyframe'])}), closure frames "
+        f"{[round(t, 1) for t in at['closure']]} ms; the lap {lap_s:.1f} s; loop detection "
+        f"median {res['detect_ms_median']:.2f} ms per keyframe ({res['detections']}); "
+        f"compute_sim3 {[round(t, 1) for t in res['compute_sim3_ms']]} ms per candidate; "
+        f"correct_loop {[round(t, 1) for t in res['correct_loop_ms']]} ms (propagation and "
+        f"fusion {[round(t, 1) for t in res['propagate_and_fuse_ms']]}, essential graph "
+        f"{[round(t, 1) for t in res['essential_graph_ms']]}); GBA chunks "
+        f"{[round(t, 1) for t in chunks]} ms; " +
+        "; ".join(f"closure {k + 1}: " + ", ".join(f"{n} {v:.1f}" for n, v in
+                                                  res[f'closure_{k + 1}_stages_ms'].items()) +
+                  " ms; the same closure in the second lap (the process's next, warm): " +
+                  ", ".join(f"{n} {v:.1f}" for n, v in
+                            res[f'closure_{k + 1}_warm_stages_ms'].items()) + " ms"
+                  for k in range(s.n_loops_closed)) +
+        f"; the second lap's GBA chunks {[round(t, 1) for t in res['warm_gba_chunk_ms']]} ms, "
+        f"its detection median {res['warm_detect_ms_median'] or 0:.2f} ms")
+
+    # K9 at the global BA's shape: device time (queued clock) beside its bound
+    k9 = rec["ba_gba"]
+    a9 = _named(cb.ba_assemble, k9)
+    e9 = a9["edge_mask"].numel()
+    gba_bound, gba_by = _bound(_ba_assemble_bytes(k9), 600 * e9)
+    k9_res = {"shape": f"E={e9} ({a9['points'].shape[0]} points x "
+                       f"{a9['edge_mask'].shape[1]}), C={a9['poses'].shape[0]}, robust off",
+              "device_ms": _queued_ms(lambda: cb.ba_assemble(*k9)),
+              "ms": _event_ms(lambda: cb.ba_assemble(*k9), 20),
+              "plain_ms": _event_ms(lambda: cb.ba_assemble_plain(*k9), 5),
+              "bound_ms": gba_bound, "bound_by": gba_by, "launches": k9_gba[0]}
+    log(f"[loop] {card}: K9 at the global BA's shape ({k9_res['shape']}): device "
+        f"{k9_res['device_ms'] * 1e3:.1f} us queued, {k9_res['ms']:.3f} ms per call, twin "
+        f"{k9_res['plain_ms']:.3f} ms, bound {gba_bound * 1e3:.2f} us ({gba_by}), "
+        f"{k9_gba[0]} launches in the lap")
+    res["pcg"] = _pcg_against_dense(cfg, s.m, dev, card)
+    return launches, k9_res, res
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -1697,7 +2256,11 @@ def main():
     launches, uploads, inputs, results, syncs, reads, events = main_path_phase(
         cfg, poses, frames, dev)
     side_launches = {"pose_normal_eqs": k7_path(recorded)}
-    system_launches, system_res = system_phase(cfg, poses, frames, dev, card)
+    voc = synth_vocabulary(10, 6, device=dev)
+    log(f"[system] synth_vocabulary(10, 6): {voc.n_nodes} nodes, {voc.n_words} words on the "
+        f"card ({_nbytes(voc.children, voc.centroids, voc.word_id, voc.word_weight) / 1e6:.1f} MB)")
+    system_launches, system_res = system_phase(cfg, poses, frames, voc, dev, card)
+    loop_launches, k9_gba, loop_res = loop_phase(cfg, voc, dev, card, errs)
     if not launches["best_two_node"]:
         # no frame of the forced run fell back to the reference keyframe:
         # the node form's launches are the [system] phase's (relocalization)
@@ -1707,13 +2270,14 @@ def main():
         raise AssertionError(f"kernels never launched: {missing}")
     per_call = timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads,
                             events, dev, card)
-    log(f"[result] {card}: " + json.dumps({"system": system_res}))
+    log(f"[result] {card}: " + json.dumps({"system": system_res, "loop": loop_res}))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     # K7 is on no call chain of the main path: its `launches` are the side
     # run's (k7_path), and `main_path_launches` says what the main path gave;
-    # `system_launches` are the [system] phase's
+    # `system_launches` are the [system] phase's, `loop_launches` the [loop]
+    # phase's (K9's `gba`: its launches and timing at the global BA's shape)
     froms = {"pose_normal_eqs": "a run of its own: no call chain of the main path reaches it",
              "best_two_node": "the [system] phase: relocalization's BoW search (no frame of "
                               "the main path fell back to the reference keyframe)"}
@@ -1722,8 +2286,11 @@ def main():
         entry = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                  "launches": side_launches.get(name, launches[name]),
                  "main_path_launches": launches[name],
-                 "system_launches": system_launches[name], "max_abs_err": errs[name],
+                 "system_launches": system_launches[name],
+                 "loop_launches": loop_launches[name], "max_abs_err": errs[name],
                  **per_call[name]}
+        if name == "ba_edge":
+            entry["gba"] = k9_gba
         if name in side_launches:
             entry["launches_from"] = froms[name]
         kernels.append(entry)

@@ -299,6 +299,21 @@ def covisible_keyframes(m: MapState, kf_id, k: int, min_weight: int = 1):
                        torch.full_like(vals, INVALID)), vals
 
 
+def add_loop_edge(m: MapState, kf_i, kf_j) -> MapState:
+    """Persist the loop-closure edge (kf_i, kf_j) in the first free row of
+    loop_edges (dropped when the table is full). The reference keeps them
+    per keyframe (`KeyFrame::AddLoopEdge`, src/KeyFrame.cc:591-599): every
+    later essential graph carries them (src/Optimizer.cc:1248-1283) and
+    both ends are never culled (src/KeyFrame.cc:603-649)."""
+    le = m.loop_edges
+    used = le[:, 0] >= 0
+    free = torch.argmin(used.to(torch.int32))            # the first -1 row
+    idx = torch.where(used.all(), torch.full_like(free, le.shape[0]), free)
+    row = torch.stack([torch.as_tensor(kf_i, device=le.device).to(torch.int32).reshape(()),
+                       torch.as_tensor(kf_j, device=le.device).to(torch.int32).reshape(())])
+    return m._replace(loop_edges=put_drop(le, idx.reshape(1), row[None]))
+
+
 def loop_protected_keyframes(m: MapState):
     """(K,) bool: the keyframes of a persisted loop edge (never culled)."""
     K = m.capacity_kf

@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..geometry import sim3
 from ..utils.config import device_table
 from . import cuda_match
 # the plain building blocks live beside the kernels' twins that use them
@@ -179,3 +180,40 @@ def search_by_node(
         accept = rotation_consistency(angle_a, angle_b, accept, best_idx)
     keep = resolve_conflicts(best_idx, best, accept, desc_b.shape[0])
     return Matches(best_idx, best, keep)
+
+
+def search_by_sim3(
+    pc1, uv1, lvl1, desc1, valid1,
+    pc2, uv2, lvl2, desc2, valid2,
+    g12, scale_factors, fx: float, fy: float, cx: float, cy: float,
+    th: float = 7.5, max_dist: int = TH_HIGH,
+):
+    """Guided mutual Sim3 search (`ORBmatcher::SearchBySim3`,
+    `src/ORBmatcher.cc:1139-1320`): keyframe 2's points projected into
+    image 1 by g12 and keyframe 1's into image 2 by g12^-1, a window of
+    th * scale(source octave), any target octave, no stereo test; a pair is
+    kept where both directions pick each other at distance <= max_dist
+    (:1300-1318). Each direction is one launch of K4's window form, with
+    the projected depth z > 0 folded into the sources' validity.
+    pc1/pc2 (N,3) bound map points in each camera frame, uv1/uv2 their
+    keypoints, g12 maps camera-2 points into camera 1. Returns Matches over
+    keyframe 1's features (idx into keyframe 2's)."""
+    def project(p):
+        z = torch.clamp(p[..., 2], min=1e-9)
+        return torch.stack([fx * p[..., 0] / z + cx, fy * p[..., 1] / z + cy], dim=-1), p[..., 2]
+
+    uv2in1, z21 = project(sim3.apply(g12, pc2))
+    uv1in2, z12 = project(sim3.apply(sim3.inverse(g12), pc1))
+    open_ = (cuda_match.OPEN, cuda_match.OPEN)
+    no_ur1 = torch.full((pc1.shape[0],), -1.0, device=pc1.device)
+    no_ur2 = torch.full((pc2.shape[0],), -1.0, device=pc2.device)
+    best21, idx21, _ = cuda_match.window_best_two(
+        uv2in1, _radius(th, scale_factors, lvl2), lvl2, no_ur2, valid2 & (z21 > 0), desc2,
+        uv1, lvl1, no_ur1, valid1, desc1, open_)
+    best12, idx12, _ = cuda_match.window_best_two(
+        uv1in2, _radius(th, scale_factors, lvl1), lvl1, no_ur1, valid1 & (z12 > 0), desc1,
+        uv2, lvl2, no_ur2, valid2, desc2, open_)
+    j = torch.clamp(idx12, 0, idx21.shape[0] - 1).long()
+    mutual = idx21[j] == torch.arange(idx12.shape[0], dtype=idx21.dtype, device=idx21.device)
+    accept = mutual & (best12 <= max_dist) & (best21[j] <= max_dist) & valid1
+    return Matches(idx12, best12, accept)

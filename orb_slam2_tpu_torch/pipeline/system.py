@@ -20,10 +20,12 @@ payload goes back by a non-blocking copy into pinned host memory behind a
 CUDA event, which the retire waits on.
 
 Ported: RGB-D tracking and initialization, the natural keyframe policy,
-relocalization from LOST (`_relocalize`), localization mode, reset,
-trajectory export. Not ported yet (ROADMAP Queue 1): loop closing and
-global BA (item 3), monocular and stereo (item 4), the two-device split
-(item 5), the frame drawer (item 6); each raises NotImplementedError.
+relocalization from LOST (`_relocalize`), loop closing with the global BA
+spread over later keyframes (`loop_closing.py`) and the periodic global
+BA, localization mode, reset, trajectory export. Not ported yet (ROADMAP
+Queue 1): monocular and stereo (item 4), the sharded global BA and the
+two-device split (item 5), the frame drawer (item 6); each raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ from ..mapstate import map as mapstate
 from ..ops import matching
 from ..solvers import pnp, pose_opt
 from ..utils.config import SlamConfig, SENSOR_MONOCULAR
-from . import mapping_ops, tracking_ops, tracking_step
+from . import loop_closing, mapping_ops, tracking_ops, tracking_step
 from .frame import FrameData, make_frame_rgbd
 
 NOT_INITIALIZED = 0
@@ -106,15 +108,12 @@ def _not_ported(what: str, item: int):
 class SlamSystem:
     """Construct once, call `track_rgbd` per frame, then `flush()` and
     `get_trajectory()`. `device` holds the map and runs the kernels ("cuda",
-    the default) or their plain twins ("cpu")."""
+    the default) or their plain twins ("cpu"). Loop closing is on by
+    default, as in the reference."""
 
     def __init__(self, cfg: SlamConfig, vocabulary=None, enable_loop_closing=True,
                  gba_mesh=None, pipeline_depth: int = 0, mapping_device=None,
                  device="cuda"):
-        if enable_loop_closing:
-            raise _not_ported("loop closing (pass enable_loop_closing=False)", 3)
-        if cfg.gba_every_n_kf > 0:
-            raise _not_ported("periodic global BA (cfg.gba_every_n_kf > 0)", 3)
         if gba_mesh is not None:
             raise _not_ported("sharded global BA (gba_mesh)", 5)
         if mapping_device is not None:
@@ -134,7 +133,14 @@ class SlamSystem:
         self.voc = vocabulary
         self.db = self._empty_db() if vocabulary is not None else None
         self._voc_train_desc = []
+        self.enable_loop_closing = enable_loop_closing
+        self.loop_state = loop_closing.LoopState()
         self.n_loops_closed = 0
+        # each closure: keyframe sequence number, keyframe and candidate
+        # ids and their frames
+        self.loop_closures: List[dict] = []
+        self._kfs_since_gba = 0       # keyframes since the last global BA
+        self._gba_chunks_left = 0     # amortized global-BA chunks still to run
         self.localization_only = False
         self.state = NOT_INITIALIZED
         self.velocity: Optional[np.ndarray] = None
@@ -520,9 +526,21 @@ class SlamSystem:
         self._chain = None
 
     def flush(self):
-        """Drain the pipelined stream: call at the end of a sequence before
-        reading the trajectory (System::Shutdown)."""
+        """Drain the pipelined stream and run the global-BA chunks still
+        pending: call at the end of a sequence before reading the
+        trajectory (System::Shutdown waits for a running global BA before
+        SaveTrajectory, src/System.cc:349-360)."""
         self._flush_pipeline()
+        while self._gba_chunks_left > 0:
+            self._gba_chunk()
+
+    def _gba_chunk(self):
+        """One of cfg.gba_async_chunks chunks of the loop's global BA,
+        ceil(gba_total_iters / gba_async_chunks) LM iterations."""
+        cfg = self.cfg
+        self.m = loop_closing.run_global_ba(
+            cfg, self.m, n_iters=max(1, -(-cfg.gba_total_iters // cfg.gba_async_chunks)))
+        self._gba_chunks_left -= 1
 
     # ------------------------------------------------------------------
     # Keyframe events
@@ -530,9 +548,12 @@ class SlamSystem:
 
     def _handle_keyframe(self, f: FrameData, Tcw, matched_pt, fid: int, timestamp: float):
         """Insert a keyframe from frame f at pose Tcw (host) and run the
-        mapping pass. Returns (Tcw, the keyframe's bindings): no loop
-        correction is ported, so the pose stays as tracked. One host transfer
-        per event, plus one when a keyframe was culled."""
+        per-keyframe pipeline: the mapping pass, loop closing, the amortized
+        or periodic global BA. Returns (Tcw, the keyframe's bindings), Tcw
+        the keyframe's corrected pose when a correction or a global BA moved
+        it. One host transfer per event (the summary and the loop
+        candidates), plus one when a keyframe was culled and the reads of
+        compute_sim3 when a candidate passes the consistency gate."""
         return self._finish_keyframe(self._dispatch_mapping(f, Tcw, matched_pt, fid, timestamp))
 
     def _dispatch_mapping(self, f: FrameData, Tcw, matched_pt, fid: int, timestamp: float):
@@ -547,14 +568,29 @@ class SlamSystem:
                     kf_seq=self._kf_seq_host, t_kf0=t_kf0, Tcw=np.asarray(Tcw))
 
     def _finish_keyframe(self, pend):
-        """Adopt a mapping pass: the keyframe's BoW row, the one host
-        transfer, the trajectory rehomed off culled keyframes."""
+        """Adopt a mapping pass: the keyframe's BoW row, loop detection,
+        the one host transfer, the trajectory rehomed off culled keyframes,
+        the candidates through compute_sim3 and correct_loop, a global-BA
+        chunk."""
+        cfg = self.cfg
         f, culled, summary = pend["f"], pend["culled"], pend["summary"]
+        kf_seq = pend["kf_seq"]
         self.m = pend["m"]
+        loops_before = self.n_loops_closed
         self._ensure_vocabulary(f)
+        cands = None
         if self.voc is not None:
-            self.db = self.db.add(summary[0], self._bow_vec(f.desc, f.valid))
-        summary_h = summary.cpu().numpy()         # the one per-keyframe host transfer
+            vec = self._bow_vec(f.desc, f.valid)
+            self.db = self.db.add(summary[0], vec)
+            if self.enable_loop_closing and \
+                    kf_seq - self.loop_state.last_loop_kf_seq >= cfg.loop_kf_gap:
+                cands = loop_closing.detect_loop_dispatch(cfg, self.m, self.db, vec, summary[0],
+                                                          self.loop_state)
+        # the one per-keyframe host transfer: the summary and the candidates
+        n_sum = summary.shape[0]
+        packed = summary if cands is None else torch.cat([summary, cands])
+        packed_h = packed.cpu().numpy()
+        summary_h, cands_h = packed_h[:n_sum], packed_h[n_sum:]
         kf_id = int(summary_h[0])
         self._n_kf_host = int(summary_h[1])
         self.ref_kf = kf_id
@@ -563,8 +599,58 @@ class SlamSystem:
             if self.db is not None:
                 self.db = self.db.erase(culled)
             self._rehome_trajectory(culled_h)
-        self.stage_ms = {"mapping": (time.time() - pend["t_kf0"]) * 1e3}
-        return pend["Tcw"], self.m.kf_obs[kf_id]
+        matched_pt = self.m.kf_obs[kf_id]
+        t_loop0 = time.time()
+        cands_ok = [] if cands is None else loop_closing.bow_gate(cfg, self.m, kf_id, cands_h)
+        for cand in cands_ok:
+            # every consistent candidate in turn until one passes ComputeSim3
+            # (mvpEnoughConsistentCandidates, src/LoopClosing.cc:331-466)
+            ok, Scm, _ = loop_closing.compute_sim3(cfg, self.m, kf_id, cand)
+            if not ok:
+                continue
+            amortize = cfg.gba_async_chunks > 0
+            self.m = loop_closing.correct_loop(cfg, self.m, kf_id, cand, Scm,
+                                               run_gba=not amortize)
+            # the global BA spread over the next keyframes; chunks pending from
+            # an older loop are dropped (mbStopGBA, src/LoopClosing.cc:559-572)
+            self._gba_chunks_left = cfg.gba_async_chunks if amortize else 0
+            self.loop_state.last_loop_kf_seq = kf_seq
+            self.n_loops_closed += 1
+            fid = self.m.kf_frame_id.cpu().numpy()
+            self.loop_closures.append(dict(kf_seq=kf_seq, kf=kf_id, cand=cand,
+                                           kf_frame=int(fid[kf_id]),
+                                           cand_frame=int(fid[cand])))
+            self._kfs_since_gba = 0
+            break
+        self.stage_ms = {"mapping": (t_loop0 - pend["t_kf0"]) * 1e3,
+                         "loop": (time.time() - t_loop0) * 1e3}
+        gba_chunk_ran = False
+        if self.n_loops_closed == loops_before and self._gba_chunks_left > 0:
+            self._gba_chunk()     # one amortized chunk per later keyframe
+            gba_chunk_ran = True
+        corrected = (self._maybe_periodic_gba() or gba_chunk_ran or
+                     self.n_loops_closed != loops_before)
+        if corrected:
+            # the correction or the global BA moved the keyframes (this one
+            # too): tracking continues from its pose, and the motion model,
+            # computed against the old poses, is dropped
+            self.velocity = None
+            return self.m.kf_pose[kf_id].cpu().numpy(), matched_pt
+        return pend["Tcw"], matched_pt
+
+    def _maybe_periodic_gba(self) -> bool:
+        """The opt-in periodic global BA (cfg.gba_every_n_kf > 0) that bounds
+        scale drift on loop-free sequences; the reference runs it only on a
+        closure (src/LoopClosing.cc:873-1017). A closure restarts the
+        count."""
+        if self.cfg.gba_every_n_kf <= 0:
+            return False
+        self._kfs_since_gba += 1
+        if self._kfs_since_gba < self.cfg.gba_every_n_kf:
+            return False
+        self._kfs_since_gba = 0
+        self.m = loop_closing.run_global_ba(self.cfg, self.m)
+        return True
 
     def _need_kf_from_scalars(self, sc, fid=None) -> bool:
         """NeedNewKeyFrame (`src/Tracking.cc:1499-1623`) from the step's
@@ -628,6 +714,9 @@ class SlamSystem:
         self.m = self._empty_map()
         if self.voc is not None:
             self.db = self._empty_db()
+        self.loop_state.reset()
+        self._kfs_since_gba = 0
+        self._gba_chunks_left = 0
         self.state = NOT_INITIALIZED
         self.velocity = None
         self.last_frame = None

@@ -106,18 +106,31 @@ def _assemble(cam, prob: BAProblem, edges: _Edges, poses, points, edge_mask,
                                     robust))
 
 
+# The least pivot of a point block's Cholesky, relative to its diagonal
+# entry. A pivot h_kk - sum l_kj^2 is known in float32 only to a few eps
+# h_kk (eps = 1.2e-7): LM's relative damping falls to 1e-9, below that, and
+# a point seen once without depth has a rank-2 block, so its last pivot is
+# rounding noise. Clamped at 1e-20 it made a 1e10 factor, the reduced
+# camera system indefinite and every low-damping step NaN (PERF.md, section 6).
+# The floor damps such a block by 1e-5 (two digits above the noise); a
+# block with a condition number below ~1e5 never reaches it.
+PIVOT_FLOOR = 1e-5
+
+
 def _chol3x3(H):
-    """Closed-form batched lower Cholesky of SPD 3x3 blocks (fed damped
-    matrices; the eps clamps guard exact zeros only)."""
+    """Closed-form batched lower Cholesky of symmetric 3x3 blocks, each
+    pivot at least PIVOT_FLOOR times its diagonal entry (the eps clamps
+    guard exact zeros only)."""
     eps = 1e-20
     h11, h12, h13 = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
     h22, h23, h33 = H[..., 1, 1], H[..., 1, 2], H[..., 2, 2]
     l11 = torch.sqrt(torch.clamp(h11, min=eps))
     l21 = h12 / l11
     l31 = h13 / l11
-    l22 = torch.sqrt(torch.clamp(h22 - l21 * l21, min=eps))
+    l22 = torch.sqrt(torch.maximum(h22 - l21 * l21, torch.clamp(PIVOT_FLOOR * h22, min=eps)))
     l32 = (h23 - l31 * l21) / l22
-    l33 = torch.sqrt(torch.clamp(h33 - l31 * l31 - l32 * l32, min=eps))
+    l33 = torch.sqrt(torch.maximum(h33 - l31 * l31 - l32 * l32,
+                                   torch.clamp(PIVOT_FLOOR * h33, min=eps)))
     zero = torch.zeros_like(l11)
     return torch.stack([torch.stack([l11, zero, zero], dim=-1),
                         torch.stack([l21, l22, zero], dim=-1),

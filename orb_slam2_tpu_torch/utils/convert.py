@@ -14,10 +14,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..geometry.sim3 import Sim3
 from ..mapstate.map import MapState
 from ..ops.extractor import Keypoints
 from ..pipeline.frame import FrameData
+from ..pipeline.loop_closing import LoopState
 from ..pipeline.tracking_step import TrackStepResult
+from ..solvers.pose_graph import PoseGraphProblem
 from ..solvers.schur_ba import BAProblem, BAResult
 from .config import SlamConfig
 
@@ -111,3 +114,27 @@ def ba_problem_to_numpy(prob: BAProblem) -> dict:
 def ba_result_to_numpy(res: BAResult) -> dict:
     """The port's BAResult as a dict of NumPy arrays."""
     return {f: _array(f, getattr(res, f)) for f in BAResult._fields}
+
+
+def sim3_from_numpy(g, device="cuda") -> Sim3:
+    """Port `Sim3` from a reference `Sim3` (R, t, s as arrays)."""
+    return _from_numpy(Sim3, g, device)
+
+
+def loop_state_from_numpy(state, device="cuda") -> LoopState:
+    """Port `LoopState` from a reference `LoopState` (its groups and counts
+    as arrays, or None before the first detection)."""
+    out = LoopState()
+    if state.groups is not None:
+        out.groups = _tensor("groups", state.groups, device)
+        out.cons = _tensor("cons", state.cons, device)
+    out.last_loop_kf_seq = int(state.last_loop_kf_seq)
+    return out
+
+
+def pose_graph_problem_from_numpy(prob, device="cuda") -> PoseGraphProblem:
+    """Port `PoseGraphProblem` from a reference one (its Sim3 fields as
+    reference `Sim3`s)."""
+    return PoseGraphProblem(**{
+        f: sim3_from_numpy(getattr(prob, f), device) if f in ("nodes", "edge_meas") else
+        _tensor(f, getattr(prob, f), device) for f in PoseGraphProblem._fields})

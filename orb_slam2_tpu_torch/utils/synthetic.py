@@ -227,3 +227,58 @@ def lateral_trajectory(n_frames, step=0.02, yaw_rate=0.0):
         T[:3, 3] = [step * i, 0.002 * i, 0.001 * np.sin(i * 0.3)]
         poses.append(T)
     return poses
+
+
+def figure_eight_trajectory(n_frames, radius=3.0, dwell=0.08):
+    """Two tangent circles traversed in sequence (a figure eight through the
+    origin): lap A around (-r, 0), then lap B around (+r, 0), velocity-
+    continuous at the crossover. Each lap overshoots by `dwell` of a turn so
+    place recognition sees several consecutive revisit keyframes: two
+    distinct loop closures, one per lap."""
+    per = n_frames // 2
+    total = 2 * np.pi * (1.0 + dwell)
+    poses = []
+    for i in range(n_frames):
+        if i < per:
+            a = total * i / per
+            x = -radius + radius * np.cos(a)
+            y = radius * np.sin(a)
+        else:
+            a = total * (i - per) / (n_frames - per)
+            x = radius - radius * np.cos(a)
+            y = radius * np.sin(a)
+        T = np.eye(4)
+        T[:3, 3] = [x, y, 0.0]
+        poses.append(T)
+    return poses
+
+
+class ImperfectCamera:
+    """Photometric imperfections over any world: per-frame exposure gain (a
+    slow sinusoid, like auto-exposure hunting), additive Gaussian pixel
+    noise and mild vignetting. The noise comes from one generator drawn in
+    call order, so frames must be rendered in sequence to repeat a run."""
+
+    def __init__(self, world, noise_sigma=4.0, exposure_amp=0.25,
+                 exposure_period=180.0, vignette=0.25, seed=7):
+        self.world = world
+        self.noise_sigma = noise_sigma
+        self.exposure_amp = exposure_amp
+        self.exposure_period = exposure_period
+        self.rng = np.random.default_rng(seed)
+        h, w = world.h, world.w
+        ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        r2 = (((xs - w / 2) / (w / 2)) ** 2 + ((ys - h / 2) / (h / 2)) ** 2)
+        self.vig = (1.0 - vignette * r2 / 2).astype(np.float32)
+
+    def degrade(self, img, frame_idx: int):
+        """A clean render through the camera: gain, vignetting, noise."""
+        gain = 1.0 + self.exposure_amp * np.sin(
+            2 * np.pi * frame_idx / self.exposure_period)
+        img = img * gain * self.vig
+        img = img + self.rng.normal(0.0, self.noise_sigma, img.shape)
+        return np.clip(img, 0, 255).astype(np.float32)
+
+    def render_with_depth(self, T_wc, frame_idx: int):
+        img, depth = self.world.render_with_depth(T_wc)
+        return self.degrade(img, frame_idx), depth

@@ -2,7 +2,7 @@
 """The JAX reference's numbers for `chip_smoke.py` (the PyTorch/CUDA port's
 smoke run), measured on the CPU with the reference package's XLA path.
 
-    env JAX_PLATFORMS=cpu python scripts/chip_smoke_reference.py [--system-only]
+    env JAX_PLATFORMS=cpu python scripts/chip_smoke_reference.py [--system-only | --loop-only]
 
 It renders chip_smoke's frames (the reference bench's first N_FRAMES poses,
 640x480, 1000 features, RGB-D), extracts them with the port's front end (as
@@ -29,6 +29,15 @@ path (the stream's step patched to take the frame as its images, as
 keyframe frames and the ATE of a synchronous lap; a kidnap (state LOST, the
 render of pose KIDNAP_POSE) and its camera-centre error; a fresh system
 with pipeline_depth=3 and its flush, with the same records.
+
+`--loop-only` gives the `[loop]` phase's numbers (`REFERENCE_LOOP`): the
+reference `SlamSystem` with its defaults (loop closing on, 4 amortized GBA
+chunks, the natural keyframe policy, `synth_vocabulary(10, 6)`) over
+chip_smoke's figure eight (`render_loop_frames`, EVAL.md's fig8-rgbd row,
+560 frames) handed the port's frames, then `flush()`: the loops closed and,
+for each closure, its keyframe sequence number, the frames of its keyframe
+and candidate and of the candidate's covisible keyframes; the frames
+tracked, the keyframes inserted and the ATE.
 """
 from __future__ import annotations
 
@@ -224,6 +233,60 @@ def system_laps(jcfg, poses, jf):
     return out
 
 
+def loop_lap(jcfg, poses, jf):
+    """The reference SlamSystem's records for chip_smoke's [loop] phase."""
+    from orb_slam2_tpu.bow import vocabulary as jvoc
+    from orb_slam2_tpu.pipeline import loop_closing as jlc
+    from orb_slam2_tpu.pipeline import system as jsystem
+    from orb_slam2_tpu.utils import trajectory as jtraj
+
+    voc = jvoc.synth_vocabulary(10, 6)
+    jts.full_tracking_step_from_images = \
+        lambda cfg, m, f, *rest: jts.full_tracking_step(cfg, m, f, *rest[:-1])
+    s = jsystem.SlamSystem(jcfg, vocabulary=voc)
+    closures, detections = [], []
+    correct_loop, dispatch = jlc.correct_loop, jlc.detect_loop_dispatch
+
+    def record_correct(cfg, m, kf_id, cand_id, Scm, **kw):
+        fid = np.asarray(m.kf_frame_id)
+        nb = np.nonzero((np.asarray(m.covis[cand_id]) > 0) & np.asarray(m.kf_valid))[0]
+        closures.append(dict(kf_seq=s._kf_seq_host, kf_frame=int(fid[kf_id]),
+                             cand_frame=int(fid[cand_id]),
+                             cand_neighbour_frames=sorted(int(fid[k]) for k in nb)))
+        print(f"closure {closures[-1]}", flush=True)
+        return correct_loop(cfg, m, kf_id, cand_id, Scm, **kw)
+
+    def record_dispatch(cfg, m, db, vec, kf_id, state):
+        cands = dispatch(cfg, m, db, vec, kf_id, state)
+        fid = np.asarray(m.kf_frame_id)
+        detections.append((s._kf_seq_host, [int(fid[c]) for c in np.asarray(cands) if c >= 0]))
+        return cands
+
+    jlc.correct_loop, jlc.detect_loop_dispatch = record_correct, record_dispatch
+    t0 = time.perf_counter()
+    for i, f in enumerate(jf):
+        if s.state == jsystem.OK:
+            s._track(f, i / jcfg.fps)
+        else:
+            s._flush_pipeline()
+            s._track(f, i / jcfg.fps)
+        if i % 50 == 0:
+            print(f"frame {i}: {s.get_map_stats()} ({time.perf_counter() - t0:.0f} s)",
+                  flush=True)
+    s.flush()
+    jlc.correct_loop, jlc.detect_loop_dispatch = correct_loop, dispatch
+    gt = [(i / jcfg.fps, T) for i, T in enumerate(poses)]
+    traj = s.get_trajectory()
+    print(f"detections (kf_seq, candidate frames): {[d for d in detections if d[1]]}")
+    fid = np.asarray(s.m.kf_frame_id)
+    return dict(loops=s.n_loops_closed, closures=closures, tracked=len(traj),
+                keyframes_inserted=s._kf_seq_host, keyframes=int(s.m.n_keyframes),
+                points=int(s.m.n_points),
+                loop_edge_frames=[[int(fid[i]), int(fid[j])]
+                                  for i, j in np.asarray(s.m.loop_edges) if i >= 0],
+                ate_m=round(jtraj.ate_rmse(traj, gt), 6))
+
+
 def main():
     import torch
     import chip_smoke as cs
@@ -237,6 +300,14 @@ def main():
                                       "fps", "th_depth", "n_features", "max_keyframes",
                                       "max_map_points")})
     assert convert.config_from_jax(jcfg) == tcfg
+    if "--loop-only" in sys.argv:
+        poses, frames = cs.render_loop_frames()
+        jf = [jax_frame(tframe.make_frame_rgbd(torch.from_numpy(g), torch.from_numpy(d), tcfg))
+              for g, d in frames]
+        print(f"extracted {len(jf)} frames ({time.perf_counter() - t0:.0f} s)", flush=True)
+        print(f"REFERENCE_LOOP = {loop_lap(jcfg, poses, jf)}")
+        print(f"jax {jax.__version__}, {time.perf_counter() - t0:.0f} s")
+        return
     poses, frames = cs.render_frames()
     tf = [tframe.make_frame_rgbd(torch.from_numpy(g), torch.from_numpy(d), tcfg)
           for g, d in frames]

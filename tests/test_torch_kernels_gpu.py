@@ -890,3 +890,108 @@ def test_keyframe_pass_kernel_path_equals_twin_path(cuda, monkeypatch):
     keep = m_k.pt_valid & m_t.pt_valid
     assert float(keep.float().mean()) >= 0.9 * float(m_k.pt_valid.float().mean())
     assert float((m_k.pt_pos[keep] - m_t.pt_pos[keep]).abs().max()) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# Loop closing: K4 and K9 at the loop path's inputs, the loop path on the card
+# ---------------------------------------------------------------------------
+
+def test_window_best_two_kernel_open_octaves(cuda):
+    """K4's window form as SearchBySim3 calls it (`matching.search_by_sim3`):
+    both octave sides open, no stereo test (right x -1 on both sides), the
+    projected depth folded into the sources' validity, at 2048 x 2048:
+    bit-exact against the twin, one launch."""
+    args, _ = _synthetic_proj_tiles(np.random.default_rng(5), cuda, p=2048, n=2048)
+    args = list(args)
+    args[3] = torch.full_like(args[3], -1.0)
+    args[8] = torch.full_like(args[8], -1.0)
+    behind = torch.from_numpy(np.random.default_rng(6).random(2048) < 0.2).to(cuda)
+    args[4] = (args[4] & ~behind).contiguous()
+    args = tuple(args) + ((cm.OPEN, cm.OPEN),)
+    before = launch.LAUNCHES["best_two"]
+    got = cm.window_best_two(*args)
+    want = cm.window_best_two_plain(*args)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["best_two"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool((got[0][behind] == cm.BIG).all()) and int((got[0] < 100).sum()) > 500
+
+
+def test_ba_edge_kernel_at_the_global_ba_shape(cuda):
+    """K9 at global BA's shape on the bench's capacities: C = 128 camera
+    slots, Q x O = 16,384 x 12 = 196,608 edges, the robust kernel off:
+    every `Lin` field bit for bit with its twin, and a second launch
+    repeats it."""
+    cam, poses, points, pt_valid, edges, mask = _ba_problem(np.random.default_rng(12), 16384,
+                                                            12, 128, cuda)
+    args = (cam, poses, points, pt_valid, edges, mask, False)
+    got, again = cb.ba_assemble(*args), cb.ba_assemble(*args)
+    want = cb.ba_assemble_plain(*args)
+    torch.cuda.synchronize()
+    _lin_equal(got, want)
+    _lin_equal(got, again)
+    assert bool(torch.isfinite(schur_ba.Lin(*got).err))
+
+
+def _drifted_map(dev):
+    """`tests/test_loop_closing.py`'s drifted map built with the port's
+    map functions: two keyframes at one viewpoint, the second's pose and its
+    own copies of the points carrying a 0.4 m drift (K = 16, P = 512,
+    N = 64)."""
+    K, P, N, fx = 16, 512, 64, 300.0
+    cfg = SlamConfig(fx=fx, fy=fx, cx=160.0, cy=120.0, width=320, height=240, n_features=N,
+                     max_keypoints=N, sensor=SENSOR_RGBD, bf=fx * 0.1, max_keyframes=K,
+                     max_map_points=P, min_covis_weight=5)
+    rng = np.random.default_rng(0)
+    Xw = np.stack([rng.uniform(-1.5, 1.5, N), rng.uniform(-1.0, 1.0, N),
+                   rng.uniform(3.0, 5.0, N)], -1).astype(np.float32)
+    desc = torch.from_numpy(rng.integers(0, 2 ** 32, (N, 8), dtype=np.uint32).view(np.int32))
+    uv = np.stack([fx * Xw[:, 0] / Xw[:, 2] + 160, fx * Xw[:, 1] / Xw[:, 2] + 120], -1)
+    ok = (uv[:, 0] > 10) & (uv[:, 0] < 310) & (uv[:, 1] > 10) & (uv[:, 1] < 230)
+    t = lambda a, dt=None: torch.as_tensor(np.asarray(a, dt)).to(dev)
+    m = mapstate.empty(K, P, N, device=dev)
+    drift = np.float32([0.4, 0.0, 0.1])
+    for fid, (T, X) in enumerate(((np.eye(4), Xw), (np.eye(4), Xw + drift))):
+        T = np.array(T, np.float32)
+        if fid:
+            T[:3, 3] = -drift
+        m, k = mapstate.add_keyframe(m, t(T), t(uv, np.float32), t(np.zeros(N), np.int32),
+                                     t(np.zeros(N), np.float32), desc.to(dev),
+                                     t(np.full(N, -1.0), np.float32),
+                                     t(np.full(N, -1.0), np.float32), t(ok),
+                                     t(np.full(N, -1), np.int32), 10 * fid, 0.0)
+        slots = mapstate.allocate_points(m, t(ok))
+        m = mapstate.add_points(m, slots, t(X, np.float32), desc.to(dev), k, k)
+        m = mapstate.bind_observations(m, k, t(np.arange(N)), slots, t(ok) & (slots >= 0))
+    for k in (0, 1):
+        m = mapstate.update_connections(m, torch.tensor(k, device=dev))
+    m = mapstate.update_point_normals(m, torch.ones(P, dtype=torch.bool, device=dev),
+                                      cfg.scale_factors)
+    return cfg, m
+
+
+def test_loop_path_on_the_card_equals_the_twins(cuda):
+    """compute_sim3 (K4's node form on all pairs, RANSAC, K4's window form
+    both ways, the refinement, the projection gate) and correct_loop (K5's
+    loop fusion, the essential graph, global BA through K9) on the drifted
+    map, on the card and on the CPU twins: the same decision, inlier count
+    and loop edges; the Sim3 within 1e-4, the corrected poses and points
+    within 1e-3 (cuSOLVER against LAPACK, cuBLAS against the CPU's sums)."""
+    from orb_slam2_tpu_torch.pipeline import loop_closing as lc
+
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        cfg, m = _drifted_map(dev)
+        ok, Scm, n_inl = lc.compute_sim3(cfg, m, 1, 0)
+        assert ok
+        out[dev.type] = (n_inl, Scm, lc.correct_loop(cfg, m, 1, 0, Scm, run_gba=True))
+    (n_c, S_c, m_c), (n_g, S_g, m_g) = out["cpu"], out["cuda"]
+    assert n_c == n_g > 40
+    for f in ("R", "t", "s"):
+        assert torch.allclose(getattr(S_g, f).cpu(), getattr(S_c, f), atol=1e-4), f
+    assert torch.equal(m_g.loop_edges.cpu(), m_c.loop_edges)
+    assert torch.allclose(m_g.kf_pose.cpu(), m_c.kf_pose, atol=1e-3)
+    pv = m_c.pt_valid
+    assert torch.equal(m_g.pt_valid.cpu(), pv)
+    assert torch.allclose(m_g.pt_pos.cpu()[pv], m_c.pt_pos[pv], atol=1e-3)

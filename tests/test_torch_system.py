@@ -1,6 +1,7 @@
 """The port's `SlamSystem` (`pipeline/system.py`, device="cpu") against the
 JAX reference's on the same RGB-D sequence: the natural keyframe policy,
-the pipelined stream, relocalization after a kidnap, reset.
+the pipelined stream, relocalization after a kidnap, reset, with loop
+closing on (the reference's default).
 
 The sequence is the plane world of tests/test_e2e.py (320x240, 400
 features, its small caps), 12 frames of `lateral_trajectory` with a step
@@ -9,7 +10,10 @@ the sync lap); the vocabulary is trained on the fly, loop closing is off.
 Both systems see the same frames: the port extracts them from the images
 (its own front end, `track_rgbd`), and the reference is handed the port's
 frames converted (`utils/convert.py`) through its frame-given tracking
-path, so the comparison starts from the same keypoints.
+path, so the comparison starts from the same keypoints. Loop detection
+runs on every keyframe once the vocabulary exists (loop_kf_gap = 0), so
+both sides' candidate lists, consistency groups and closures are compared
+too (the lateral sequence closes no loop).
 
 Required, and why these bounds: the same state after every frame and the
 same keyframe frames and count (integer decisions); local-map inliers per
@@ -19,17 +23,21 @@ by 1.1e-4 m on the sync lap, 2.8e-4 m in the stream); after a kidnap, relocaliza
 5 cm of the truth (tests/test_e2e.py:43-66), each side with its own RANSAC
 draws; `reset()` leaving the same fields.
 """
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
 from orb_slam2_tpu.pipeline import frame as jframe
+from orb_slam2_tpu.pipeline import loop_closing as jlc
 from orb_slam2_tpu.pipeline import system as jsystem
 from orb_slam2_tpu.pipeline import tracking_step as jts
 from orb_slam2_tpu.utils import config as jconfig
 
 from orb_slam2_tpu_torch.pipeline import frame as tframe
+from orb_slam2_tpu_torch.pipeline import loop_closing as tlc
 from orb_slam2_tpu_torch.pipeline import system as tsystem
 from orb_slam2_tpu_torch.utils import convert
 from orb_slam2_tpu_torch.utils import trajectory as ttraj
@@ -46,7 +54,8 @@ def _cfgs():
         fx=fx, fy=fx, cx=160.0, cy=120.0, width=320, height=240, n_features=400, fps=10.0,
         th_depth=60.0, sensor=jconfig.SENSOR_RGBD, bf=fx * 0.1, max_keyframes=32,
         max_map_points=1 << 13, ba_local_cams=8, ba_fixed_cams=8, ba_max_points=1 << 10,
-        ba_max_obs=6, max_local_keyframes=16, max_local_points=1 << 11, use_pallas=0)
+        ba_max_obs=6, max_local_keyframes=16, max_local_points=1 << 11, loop_kf_gap=0,
+        use_pallas=0)
     return jcfg, convert.config_from_jax(jcfg)
 
 
@@ -74,12 +83,30 @@ def _jax_track(s, f, ts):
     return s._track(f, ts)
 
 
+def _recording(monkeypatch, module, calls):
+    """Record each loop detection's candidates (keyframe ids) past
+    ComputeSim3's first gate: the reference gates them in its dispatch, the
+    port on the host's copy (`bow_gate`)."""
+    name = "bow_gate" if module is tlc else "detect_loop_dispatch"
+    step = getattr(module, name)
+
+    def record(*args):
+        cands = step(*args)
+        calls.append([int(c) for c in np.asarray(cands) if c >= 0])
+        return cands
+
+    monkeypatch.setattr(module, name, record)
+
+
 def _run(seq, depth, monkeypatch):
     monkeypatch.setattr(jts, "full_tracking_step_from_images",
                         lambda cfg, m, f, *rest: jts.full_tracking_step(cfg, m, f, *rest[:-1]))
-    js = jsystem.SlamSystem(seq["jcfg"], enable_loop_closing=False, pipeline_depth=depth)
-    ts = tsystem.SlamSystem(seq["tcfg"], enable_loop_closing=False, pipeline_depth=depth,
-                            device="cpu")
+    jcalls, tcalls = [], []
+    _recording(monkeypatch, jlc, jcalls)
+    _recording(monkeypatch, tlc, tcalls)
+    js = jsystem.SlamSystem(seq["jcfg"], pipeline_depth=depth)
+    ts = tsystem.SlamSystem(seq["tcfg"], pipeline_depth=depth, device="cpu")
+    js.detections, ts.detections = jcalls, tcalls
     states, outs = [], []
     for i in range(N_FRAMES):
         t = i / seq["tcfg"].fps
@@ -98,6 +125,12 @@ def _kf_frames(s):
 
 def _compare(js, ts, states, outs, gt, fps):
     assert all(a == b for a, b in states), states
+    # loop closing: the same detections call by call, groups and closures
+    assert ts.detections == js.detections and len(ts.detections) >= 1
+    assert ts.n_loops_closed == js.n_loops_closed == 0
+    np.testing.assert_array_equal(ts.loop_state.groups.numpy(), np.asarray(js.loop_state.groups))
+    np.testing.assert_array_equal(ts.loop_state.cons.numpy(), np.asarray(js.loop_state.cons))
+    np.testing.assert_array_equal(ts.m.loop_edges.numpy(), np.asarray(js.m.loop_edges))
     assert all(o[:2] == o[2:] for o in outs), outs
     assert _kf_frames(ts) == _kf_frames(js) and len(_kf_frames(ts)) >= 1
     assert [e["frame"] for e in ts.metrics] == [e["frame"] for e in js.metrics]
@@ -183,9 +216,13 @@ def test_reset_clears_the_same_fields(seq, monkeypatch):
 
 def test_unported_options_raise(seq):
     cfg = seq["tcfg"]
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tsystem.SlamSystem(cfg, device="cpu")
-    s = tsystem.SlamSystem(cfg, enable_loop_closing=False, device="cpu")
+    # loop closing (item 3) is ported: the default constructs with it on,
+    # and so does the periodic global BA
+    s = tsystem.SlamSystem(cfg, device="cpu")
+    assert s.enable_loop_closing
+    tsystem.SlamSystem(dataclasses.replace(cfg, gba_every_n_kf=5), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tsystem.SlamSystem(cfg, gba_mesh=object(), device="cpu")
     for call, item in ((lambda: s.track_monocular(seq["images"][0][0], 0.0), "item 4"),
                        (lambda: s.track_stereo(seq["images"][0][0], seq["images"][0][0], 0.0),
                         "item 4"),
