@@ -82,10 +82,34 @@ Phases (each prints its result; any failure exits non-zero):
                with a closure), loop detection, compute_sim3, correct_loop's
                stages, each global-BA chunk (the first lap's and the
                second's), K9 at the global BA's shape.
+8. stereo    — EVAL.md's block-stereo row (BlockWorld, the street canyon,
+               780 frames, bf 0.5 fx) through SlamSystem.track_stereo with
+               its defaults, the pairs rendered on a thread pool ahead of
+               the tracker, then flush(); checked against the JAX reference's
+               SlamSystem on the same frames (REFERENCE_STEREO: the states
+               of frames 0-30, the keyframes there, the frames tracked, the
+               ATE, the closures, the keyframe count); K1, K2 and K3 twice a
+               frame; host syncs per frame no more than the [loop] lap's; a
+               depth-3 stream; the stereo matcher on the card against the
+               CPU and a right image's K1-K3 against their twins. Timed:
+               track_stereo, make_frame_stereo, the matcher, K1-K3 on a
+               right image beside their bounds;
+9. mono      — EVAL.md's fig8-mono row ([loop]'s clean renders through a
+               camera of noise 2) through SlamSystem.track_monocular, then
+               flush(); checked against three JAX reference runs
+               (REFERENCE_MONO, RANSAC keys frame_id + 0, 1, 2: the
+               initialization frame, the frames tracked, the Sim3-aligned
+               ATE, the keyframe count); the initialization on the card
+               against the CPU with the same draws (SearchForInitialization,
+               K4 at its gate and K9 at C = 2 bit for bit, R and t within
+               1e-4); a depth-3 stream. Timed: track_monocular, the
+               initialization's search, RANSAC and CheckRT, the two-view
+               BA, K4 at the init gate and K9 at C = 2 beside their bounds.
 The second-to-last line is the kernels' JSON record (K4's two forms apart:
 best_two the window form, best_two_node the node form); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
+import dataclasses
 import inspect
 import itertools
 import json
@@ -95,7 +119,7 @@ import subprocess
 import sys
 import time
 import warnings
-from collections import Counter
+from collections import Counter, deque
 from contextlib import contextmanager
 
 import numpy as np
@@ -116,14 +140,17 @@ from orb_slam2_tpu_torch.ops import cuda_extract as ce
 from orb_slam2_tpu_torch.ops import cuda_match as cm
 from orb_slam2_tpu_torch.ops import cuda_pose as cp
 from orb_slam2_tpu_torch.ops import extractor as ex
-from orb_slam2_tpu_torch.ops import orient_brief, select
+from orb_slam2_tpu_torch.ops import matching, orient_brief, select
+from orb_slam2_tpu_torch.ops import stereo as stereo_ops
 from orb_slam2_tpu_torch.pipeline import loop_closing, mapping_ops, system, tracking_step
-from orb_slam2_tpu_torch.pipeline.frame import make_frame_rgbd
-from orb_slam2_tpu_torch.solvers import pcg_ba, schur_ba
+from orb_slam2_tpu_torch.pipeline.frame import make_frame_rgbd, make_frame_stereo
+from orb_slam2_tpu_torch.solvers import initializer, pcg_ba, schur_ba
 from orb_slam2_tpu_torch.utils import trajectory
-from orb_slam2_tpu_torch.utils.config import SlamConfig, SENSOR_RGBD
-from orb_slam2_tpu_torch.utils.synthetic import (ImperfectCamera, PlateWorld,
-                                                 figure_eight_trajectory, loop_trajectory)
+from orb_slam2_tpu_torch.utils.config import (SlamConfig, SENSOR_MONOCULAR, SENSOR_RGBD,
+                                              SENSOR_STEREO)
+from orb_slam2_tpu_torch.utils.synthetic import (BlockWorld, ImperfectCamera, PlateWorld,
+                                                 city_block_trajectory, figure_eight_trajectory,
+                                                 loop_trajectory)
 
 # What the reference package (orb_slam2_tpu, XLA path, use_pallas=0) gives on
 # the frames below, rendered and quantized exactly as here, with the same
@@ -162,6 +189,25 @@ REFERENCE_LOOP = {'loops': 1, 'closures': [{'kf_seq': 16, 'kf_frame': 315, 'cand
                                                                       70, 91]}],
                   'tracked': 560, 'keyframes_inserted': 27, 'keyframes': 27, 'points': 3027,
                   'loop_edge_frames': [[315, 16]], 'ate_m': 0.034936}
+# the [stereo] and [mono] phases' numbers: scripts/chip_smoke_reference.py
+# --stereo-only / --mono-only (the reference SlamSystem handed the port's
+# CPU-extracted frames; the mono runs with RANSAC keys frame_id + k, k < 3)
+REFERENCE_STEREO = {'loops': 0, 'closures': [], 'tracked': 780, 'keyframes_inserted': 58,
+                    'keyframes': 58, 'states': [1] * 31, 'ate_m': 0.299958,   # states: frames 0-30
+                    'kf_frames': [8, 9, 16, 22, 31, 42, 60, 89, 119, 136, 150, 160, 167, 178,
+                                  185, 196, 206, 216, 233, 256, 288, 305, 318, 330, 337, 346,
+                                  354, 364, 374, 384, 398, 421, 454, 472, 489, 498, 505, 515,
+                                  527, 539, 552, 565, 585, 608, 631, 646, 660, 670, 676, 685,
+                                  693, 702, 710, 719, 732, 750, 779]}
+REFERENCE_MONO = [   # RANSAC keys frame_id + 0, 1, 2
+    {'loops': 0, 'closures': [], 'tracked': 559, 'keyframes_inserted': 89, 'keyframes': 76,
+     'init_frame': 2, 'ate_m': 0.08022},
+    {'loops': 2, 'closures': [{'kf_seq': 46, 'kf_frame': 240, 'cand_frame': 1},
+                              {'kf_seq': 82, 'kf_frame': 493, 'cand_frame': 219}],
+     'tracked': 559, 'keyframes_inserted': 91, 'keyframes': 79, 'init_frame': 2,
+     'ate_m': 0.068624},
+    {'loops': 0, 'closures': [], 'tracked': 559, 'keyframes_inserted': 92, 'keyframes': 85,
+     'init_frame': 2, 'ate_m': 0.03826}]
 REFERENCE_EVENTS = [
     [3, 186, 0, 0, 1186, 2], [2, 295, 136, 0, 1138, 3], [3, 331, 150, 0, 1193, 4],
     [5, 341, 226, 0, 1247, 5], [3, 345, 274, 0, 1365, 6], [4, 331, 293, 0, 1514, 7],
@@ -191,8 +237,15 @@ N_RECORD = 7                # frames of the recording run (events at 3 and 6, BA
 KIDNAP_POSE = 12            # the [system] phase's kidnap: the render of this mapped pose
 STREAM_DEPTH = 3            # the [system] phase's stream lap (bench.py's default depth)
 LOOP_FRAMES = 560           # the [loop] phase's figure eight (EVAL.md's fig8-rgbd row)
+SEQ_FRAMES_CHECKED = 31     # [stereo]: the first frames, whose states must equal the reference's
+BLOCK_FRAMES = 780          # the street canyon of EVAL.md's block-stereo row
+BLOCK_BASELINE = 0.5        # m: bf = 0.5 fx, KITTI-flavoured
+RENDER_AHEAD = 48           # frames rendered ahead of the tracker (a bounded queue)
+STEREO_TIMED = 120          # [stereo]: frames timed again with no renderer running
 LOOP_KF_SLACK = 3           # keyframes a closure may move from the reference's (covis_consistency_th)
 LOOP_TRACKED_FLOOR = 0.95   # fraction of the frames the [loop] lap must track
+GENUINE_LOOP_M = 4.0        # a closure's two views: true camera centres at most 4 m apart
+GENUINE_LOOP_DEG = 45.0     # and optical axes at most 45 degrees apart
 PCG_LM_ITERS = 10           # LM iterations of the PCG / dense comparison (run_global_ba's)
 PCG_POSE_TOL = 5e-3         # their poses, per entry of Tcw (tests/test_pcg_ba.py:13-22)
 PCG_POINT_TOL = 1e-2        # their points' median distance, m (the same test)
@@ -245,6 +298,7 @@ HAND_KERNELS = ("pyramid_kernel", "dense_stage_kernel", "brief_kernel", "window_
                 "pose_normal_eqs_kernel", "epi_match_kernel",
                 "ba_assemble_kernel")   # their __global__ names in csrc/
 PHASE = ["track"]           # "event" while run_sequence is inside keyframe_pass
+FRONT_KERNELS = ("pyramid", "dense_stage", "brief")
 
 
 def log(msg):
@@ -295,24 +349,79 @@ def render_frames():
     return poses, frames
 
 
-def render_loop_frames(n=None):
-    """The fig8-rgbd sequence of the reference's evaluation
-    (`examples/eval_synthetic_hard.py:238-250`): PlateWorld (z0 5, extent 14,
-    400 plates, seed 5), figure_eight_trajectory(560, radius=3.2) and
-    ImperfectCamera(noise_sigma=3.0), the first `n` poses (all by default).
-    The clean renders run on a few threads; the camera's noise is drawn in
-    frame order, as a sequential render draws it. Gray stays float32, as the
-    evaluation hands it to the system (quantized to uint8 the sequence
-    drifts less and closes no loop, PERF.md section 4). Returns (poses,
-    frames)."""
+def render_loop_clean(n=None):
+    """The figure eight of the reference's evaluation
+    (`examples/eval_synthetic_hard.py:238-254`): PlateWorld (z0 5, extent
+    14, 400 plates, seed 5) and figure_eight_trajectory(560, radius=3.2),
+    the first `n` poses (all by default), rendered clean on a few threads.
+    Returns (world, poses, [(gray, depth)])."""
     from concurrent.futures import ThreadPoolExecutor
     world = PlateWorld(FX, FX, W / 2, H / 2, W, H, z0=5.0, extent=14.0, n_plates=400, seed=5)
     poses = figure_eight_trajectory(LOOP_FRAMES, radius=3.2)[:n]
-    cam = ImperfectCamera(world, noise_sigma=3.0)
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
         clean = list(pool.map(world.render_with_depth, poses))
-    frames = [(cam.degrade(img, i), depth) for i, (img, depth) in enumerate(clean)]
-    return poses, frames
+    return world, poses, clean
+
+
+def render_loop_frames(n=None, clean=None):
+    """The fig8-rgbd sequence: the figure eight (`render_loop_clean`'s, or
+    `clean` when given) through ImperfectCamera(noise_sigma=3.0), the noise
+    drawn in frame order, as a sequential render draws it. Gray stays
+    float32, as the evaluation hands it to the system (quantized to uint8
+    the sequence drifts less and closes no loop, PERF.md section 4).
+    Returns (poses, [(gray, depth)])."""
+    world, poses, clean = render_loop_clean(n) if clean is None else clean
+    cam = ImperfectCamera(world, noise_sigma=3.0)
+    return poses, [(cam.degrade(img, i), depth) for i, (img, depth) in enumerate(clean)]
+
+
+def mono_config():
+    """The fig8-mono row's config (`examples/eval_synthetic_hard.py:250-254`):
+    the bench's, monocular."""
+    return dataclasses.replace(bench_config(), sensor=SENSOR_MONOCULAR, bf=0.0)
+
+
+def render_mono_frames(clean=None):
+    """The fig8-mono sequence: the figure eight (`render_loop_clean`'s, or
+    `clean` when given) through ImperfectCamera(noise_sigma=2.0), the noise
+    drawn in frame order. Returns (poses, [gray])."""
+    world, poses, clean = render_loop_clean() if clean is None else clean
+    cam = ImperfectCamera(world, noise_sigma=2.0)
+    return poses, [cam.degrade(img, i) for i, (img, _) in enumerate(clean)]
+
+
+def block_config():
+    """The block-stereo row's config (`examples/eval_synthetic_hard.py:255-272`):
+    the bench's, stereo with a 0.5 m baseline."""
+    return dataclasses.replace(bench_config(), sensor=SENSOR_STEREO, bf=FX * BLOCK_BASELINE)
+
+
+def render_block_frames(n=None):
+    """The block-stereo sequence of the reference's evaluation: BlockWorld,
+    city_block_trajectory(780, corner_radius=6.0, speed=0.15,
+    overshoot=0.12) and ImperfectCamera(noise_sigma=3.0, exposure_amp=0.15),
+    the first `n` poses (all by default). Returns (poses, a generator of
+    (left, right) float32 pairs in frame order): the clean pairs render on a
+    few threads at most RENDER_AHEAD frames ahead of the consumer, and the
+    camera's noise is drawn in frame order, left before right, as a
+    sequential render draws it."""
+    from concurrent.futures import ThreadPoolExecutor
+    world = BlockWorld(FX, FX, W / 2, H / 2, W, H)
+    poses = city_block_trajectory(BLOCK_FRAMES, corner_radius=6.0, speed=0.15,
+                                  overshoot=0.12)[:n]
+    cam = ImperfectCamera(world, noise_sigma=3.0, exposure_amp=0.15)
+
+    def pairs():
+        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+            ahead = deque(pool.submit(world.render_stereo, T, BLOCK_BASELINE)
+                          for T in poses[:RENDER_AHEAD])
+            for i in range(len(poses)):
+                if i + RENDER_AHEAD < len(poses):
+                    ahead.append(pool.submit(world.render_stereo, poses[i + RENDER_AHEAD],
+                                             BLOCK_BASELINE))
+                left, right, _ = ahead.popleft().result()
+                yield cam.degrade(left, i), cam.degrade(right, i)
+    return poses, pairs()
 
 
 @contextmanager
@@ -402,37 +511,43 @@ def _require_equal(what, a, b):
                              f"(max |diff| {_max_abs(a, b):.3g})")
 
 
+def front_image_parity(cfg, img, dev, errs, what):
+    """K1, K2 and K3, each one launch over the levels of one image, against
+    their twins on every level, bit for bit, on the inputs the main path
+    hands them. Returns (the pyramid's levels, K3's arguments)."""
+    ext, pyr_twin, levels, brief = kernel_inputs(cfg, img, dev)
+    launch.reset_launches()
+    pyr = ce.pyramid(img, ext.pyramid_taps())
+    dense_args = _dense_args(cfg, levels, ext)
+    dense = ce.dense_stage_levels(*dense_args)
+    desc = ce.brief_levels(*brief)
+    torch.cuda.synchronize()
+    once = {k: launch.LAUNCHES[k] for k in FRONT_KERNELS}
+    if once != dict.fromkeys(once, 1):
+        raise AssertionError(f"{what}: front-end kernels launched {once}, once each expected")
+    for lvl, (a, b) in enumerate(zip(pyr, pyr_twin)):
+        errs["pyramid"] = max(errs["pyramid"], _max_abs(a, b))
+        _require_equal(f"pyramid {what} level {lvl}", a, b)
+    for lvl, (got, want) in enumerate(zip(dense, ce.dense_stage_levels_plain(*dense_args))):
+        for name, a, b in zip(("score_nms", "hi", "blur"), got, want):
+            errs["dense_stage"] = max(errs["dense_stage"], _max_abs(a, b))
+            _require_equal(f"dense_stage {what} level {lvl} {name}", a, b)
+    want = ce.brief_levels_plain(*brief)
+    errs["brief"] = max(errs["brief"], _max_abs(desc, want))
+    for lvl, (k0, k1) in enumerate(zip(*_spans(brief[6]))):
+        _require_equal(f"brief {what} level {lvl}", desc[k0:k1], want[k0:k1])
+    return pyr, brief
+
+
 def front_parity(cfg, frames, dev, errs):
-    """K1, K2 and K3, each one launch over the levels of a frame, against
-    their twins on every level of the N_FRONT front-end frames, bit for
-    bit, on the inputs the main path hands them."""
+    """`front_image_parity` on the N_FRONT front-end frames."""
     for i, (gray, _) in enumerate(frames[:N_FRONT]):
         img = torch.from_numpy(gray).to(dev).to(torch.float32)
-        ext, pyr_twin, levels, brief = kernel_inputs(cfg, img, dev)
-        launch.reset_launches()
-        pyr = ce.pyramid(img, ext.pyramid_taps())
-        dense_args = _dense_args(cfg, levels, ext)
-        dense = ce.dense_stage_levels(*dense_args)
-        desc = ce.brief_levels(*brief)
-        torch.cuda.synchronize()
-        once = {k: launch.LAUNCHES[k] for k in ("pyramid", "dense_stage", "brief")}
-        if once != dict.fromkeys(once, 1):
-            raise AssertionError(f"frame {i}: front-end kernels launched {once}, once each expected")
-        for lvl, (a, b) in enumerate(zip(pyr, pyr_twin)):
-            errs["pyramid"] = max(errs["pyramid"], _max_abs(a, b))
-            _require_equal(f"pyramid frame {i} level {lvl}", a, b)
-        for lvl, (got, want) in enumerate(zip(dense, ce.dense_stage_levels_plain(*dense_args))):
-            for name, a, b in zip(("score_nms", "hi", "blur"), got, want):
-                errs["dense_stage"] = max(errs["dense_stage"], _max_abs(a, b))
-                _require_equal(f"dense_stage frame {i} level {lvl} {name}", a, b)
-        want = ce.brief_levels_plain(*brief)
-        errs["brief"] = max(errs["brief"], _max_abs(desc, want))
-        for lvl, (k0, k1) in enumerate(zip(*_spans(brief[6]))):
-            _require_equal(f"brief frame {i} level {lvl}", desc[k0:k1], want[k0:k1])
+        pyr, brief = front_image_parity(cfg, img, dev, errs, f"frame {i}")
         if i == 0:
             log(f"[parity] frame 0: pyramid {len(pyr) - 1} levels {[tuple(p.shape) for p in pyr[1:]]}"
-                f", dense_stage {len(levels)} levels, brief {brief[1].shape[0]} keypoints over "
-                f"{len(levels)} levels, one launch each: bit-exact")
+                f", dense_stage {len(pyr)} levels, brief {brief[1].shape[0]} keypoints over "
+                f"{len(pyr)} levels, one launch each: bit-exact")
     log(f"[parity] pyramid, dense_stage, brief: frames 0-{N_FRONT - 1}, every level bit-exact, "
         f"one launch each per frame")
 
@@ -1319,6 +1434,31 @@ def _ba_assemble_bytes(args):
     return 105 * edge_mask.numel() + 50 * points.shape[0] + 156 * poses.shape[0] + 4
 
 
+def _front_calls(cfg, img, dev, what=f"{H}x{W}"):
+    """K1, K2 and K3 on one image, as the timing phase times them: (the
+    pyramid, K3's arguments, {kernel: (shapes, kernel call, twin call,
+    inputs or bytes, operations)}), each one launch a frame. K1: the image and its packed
+    taps in, the levels 1.. out, 3 operations per tap pass; K2: 124 per
+    pixel; K3: 512 x (4 products, 2 sums, 2 roundings) for the rotation
+    and 1,024 for the samples and compares per keypoint."""
+    ext, pyr, levels, brief = kernel_inputs(cfg, img, dev)
+    taps, dense_args = ext.pyramid_taps(), _dense_args(cfg, levels, ext)
+    resize_ops = sum(3 * h * pw + 3 * h * w for (ph, pw), (h, w) in
+                     zip([p.shape for p in pyr[:-1]], [p.shape for p in pyr[1:]]))
+    return pyr, brief, {
+        "pyramid": (f"{what} -> {cfg.n_levels - 1} levels, call (one launch)",
+                    lambda: ce.pyramid(img, taps), lambda: ce.pyramid_plain(img, taps),
+                    _nbytes(img, taps.itaps, taps.ftaps, pyr[1:]), resize_ops),
+        "dense_stage": (f"{what} pyramid, {len(levels)} levels, frame (one launch)",
+                        lambda: ce.dense_stage_levels(*dense_args),
+                        lambda: ce.dense_stage_levels_plain(*dense_args),
+                        (dense_args[0], ext.gauss), 124 * sum(lv.numel() for lv in pyr)),
+        "brief": (f"{brief[1].shape[0]} keypoints over {len(levels)} levels of {what}, frame "
+                  f"(one launch)",
+                  lambda: ce.brief_levels(*brief), lambda: ce.brief_levels_plain(*brief),
+                  _brief_bytes(brief), (8 * 512 + 1024) * brief[1].shape[0])}
+
+
 def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, events, dev,
                  card):
     front = _paths_ms("make_frame_rgbd 640x480/1000", lambda gd: make_frame_rgbd(*gd, cfg),
@@ -1380,9 +1520,7 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
         f"kernel, {p_ms:.4f} ms by the profiler ({p_n:.1f} device activities per call)")
 
     img = torch.from_numpy(frames[0][0]).to(dev).to(torch.float32)
-    ext, pyr, levels, brief = kernel_inputs(cfg, img, dev)
-    taps = ext.pyramid_taps()
-    dense_args = _dense_args(cfg, levels, ext)
+    pyr, brief, front = _front_calls(cfg, img, dev)
     k4 = recorded["best_two"][0]
     k4n = _synthetic_node(np.random.default_rng(3), 2048, 2048, 1, dev)
     k5 = recorded["proj_match"][0]
@@ -1396,10 +1534,7 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
     # row and neighbour, and its epipole test, 5 a feature), the Hamming
     # distance only for the candidates (the data-dependent counts from the
     # twins' masks); K3, K4, K5, K8 and K9 count the bytes of `_*_bytes`,
-    # the rest every input once and every output once (K1: the image and
-    # its packed taps in, the levels 1.. out; K3: 512 x (4 products, 2 sums,
-    # 2 roundings) for the rotation and 1,024 for the samples and compares
-    # per keypoint)
+    # the rest every input once and every output once (K1-K3: `_front_calls`)
     cand4 = cm.window_candidates(*k4[:5], *k4[6:10], k4[11])
     n4, pairs4 = int(cand4.sum()), int(k4[4].sum()) * int(k4[9].sum())
     cand4n = cm.node_candidates(k4n[0], k4n[2], k4n[3], k4n[5])
@@ -1412,20 +1547,8 @@ def timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads, 
     n8 = sum(int(c.sum()) for c in cand8)
     r8, pairs8 = int(rows8[1].sum()), int(rows8[1].sum()) * int((rows8[7] & rows8[9]).sum())
     e6, e9 = k6[2].shape[0], k9[5].numel()
-    resize_ops = sum(3 * h * pw + 3 * h * w for (ph, pw), (h, w) in
-                     zip([p.shape for p in pyr[:-1]], [p.shape for p in pyr[1:]]))
     calls = {   # kernel: (shapes, kernel call, twin call, inputs or bytes, operations)
-        "pyramid": (f"{H}x{W} -> {cfg.n_levels - 1} levels, call (one launch)",
-                    lambda: ce.pyramid(img, taps), lambda: ce.pyramid_plain(img, taps),
-                    _nbytes(img, taps.itaps, taps.ftaps, pyr[1:]), resize_ops),
-        "dense_stage": (f"{H}x{W} pyramid, {len(levels)} levels, frame (one launch)",
-                        lambda: ce.dense_stage_levels(*dense_args),
-                        lambda: ce.dense_stage_levels_plain(*dense_args),
-                        (dense_args[0], ext.gauss), 124 * sum(lv.numel() for lv in pyr)),
-        "brief": (f"{brief[1].shape[0]} keypoints over {len(levels)} levels of {H}x{W}, frame "
-                  f"(one launch)",
-                  lambda: ce.brief_levels(*brief), lambda: ce.brief_levels_plain(*brief),
-                  _brief_bytes(brief), (8 * 512 + 1024) * brief[1].shape[0]),
+        **front,
         "best_two": (f"{k4[0].shape[0]}x{k4[6].shape[0]}, the motion-model search of frame 1 "
                      f"(gate and best-two, one launch)",
                      lambda: cm.window_best_two(*k4), lambda: cm.window_best_two_plain(*k4),
@@ -1829,12 +1952,26 @@ def loop_instruments(cfg, stages, rec, k9_gba):
             setattr(mod, name, k_saved[k])
 
 
-def _loop_lap(cfg, voc, frames, dev, times=None, syncs=None, closure_nb=None):
+def _track_frame(s, frame, t):
+    """One frame through the entry point of the system's sensor: (gray,
+    depth) RGB-D, (left, right) stereo, a gray image monocular."""
+    if s.cfg.sensor == SENSOR_STEREO:
+        return s.track_stereo(*frame, t)
+    if s.cfg.sensor == SENSOR_MONOCULAR:
+        return s.track_monocular(frame, t)
+    return s.track_rgbd(*frame, t)
+
+
+def _loop_lap(cfg, voc, frames, dev, times=None, syncs=None, closure_nb=None, depth=0,
+              states=None, front=None):
     """A fresh SlamSystem with its defaults (loop closing on, 4 amortized
-    GBA chunks) over the frames, then flush(). With `times`, each call's
-    wall ms; with `syncs`, each call's host syncs (torch's sync debug mode);
-    with `closure_nb`, each closure's candidate's covisible keyframes' frames."""
-    s = system.SlamSystem(cfg, vocabulary=voc, device=dev)
+    GBA chunks) over the frames (any iterable, through `_track_frame`), then
+    flush(). With `times`, each call's wall ms; with `syncs`, each call's
+    host syncs (torch's sync debug mode); with `closure_nb`, each closure's
+    candidate's covisible keyframes' frames; with `states`, the state after
+    each call; with `front`, each call's K1, K2 and K3 launches. `depth`:
+    the pipelined stream's depth."""
+    s = system.SlamSystem(cfg, vocabulary=voc, pipeline_depth=depth, device=dev)
     saved = loop_closing.correct_loop
     if closure_nb is not None:
         def correct(cfg_, m, kf_id, cand_id, Scm, **kw):
@@ -1844,20 +1981,25 @@ def _loop_lap(cfg, voc, frames, dev, times=None, syncs=None, closure_nb=None):
             return saved(cfg_, m, kf_id, cand_id, Scm, **kw)
         loop_closing.correct_loop = correct
     try:
-        for i, (gray, depth_img) in enumerate(frames):
+        for i, frame in enumerate(frames):
+            before = [launch.LAUNCHES[k] for k in FRONT_KERNELS]
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 if syncs is not None:
                     torch.cuda.set_sync_debug_mode(1)
                 t0 = time.perf_counter()
                 try:
-                    s.track_rgbd(gray, depth_img, i / cfg.fps)
+                    _track_frame(s, frame, i / cfg.fps)
                 finally:
                     torch.cuda.set_sync_debug_mode(0)
                 if times is not None:
                     times.append((time.perf_counter() - t0) * 1e3)
             if syncs is not None:
                 syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+            if states is not None:
+                states.append(s.state)
+            if front is not None:
+                front.append(tuple(launch.LAUNCHES[k] - b for k, b in zip(FRONT_KERNELS, before)))
         s.flush()
         torch.cuda.synchronize()
     finally:
@@ -1865,45 +2007,65 @@ def _loop_lap(cfg, voc, frames, dev, times=None, syncs=None, closure_nb=None):
     return s
 
 
-def _loop_check(cfg, s, poses, closure_nb, ref):
-    """The run against the reference's: the loops closed, each at the
-    reference's keyframe sequence number within LOOP_KF_SLACK with the
-    reference's candidate or one of its covisible keyframes, the frames
-    tracked, the ATE, a finite map, the loop edges. Returns the ATE."""
+def _genuine(poses, closure):
+    """A closure joins two views of one place: the true camera centres of
+    its keyframe's and its candidate's frames within GENUINE_LOOP_M, their
+    optical axes within GENUINE_LOOP_DEG (poses camera-to-world)."""
+    a, b = poses[closure["kf_frame"]], poses[closure["cand_frame"]]
+    return bool(np.linalg.norm(a[:3, 3] - b[:3, 3]) <= GENUINE_LOOP_M and
+                a[:3, 2] @ b[:3, 2] >= np.cos(np.radians(GENUINE_LOOP_DEG)))
+
+
+def _loop_check(cfg, s, poses, closure_nb, ref, tag="[loop]", extra_loops=False):
+    """The run against the reference's: each of the reference's closures
+    matched by one of the run's at its keyframe sequence number within
+    LOOP_KF_SLACK with the reference's candidate or one of its covisible
+    keyframes; as many closures as the reference's, or with `extra_loops`
+    more where each extra one is genuine (`_genuine`); the frames tracked,
+    the ATE, a finite map, the loop edges. Returns (the ATE, the frames
+    tracked)."""
     gt = [(i / cfg.fps, T) for i, T in enumerate(poses)]
     traj = s.get_trajectory()
     ate = trajectory.ate_rmse(traj, gt)
     got = s.loop_closures
-    log(f"[loop] {len(traj)} of {len(poses)} frames tracked, {s._kf_seq_host} keyframes "
+    log(f"{tag} {len(traj)} of {len(poses)} frames tracked, {s._kf_seq_host} keyframes "
         f"inserted, {int(s.m.n_keyframes)} in the map, {int(s.m.n_points)} points; "
         f"{s.n_loops_closed} loops closed at "
         f"{[(c['kf_seq'], c['kf_frame'], c['cand_frame']) for c in got]} (keyframe sequence "
         f"number, frame, candidate's frame; reference {ref['loops']} at "
         f"{[(c['kf_seq'], c['kf_frame'], c['cand_frame']) for c in ref['closures']]}); ATE "
         f"{ate * 100:.3f} cm (reference {ref['ate_m'] * 100:.3f} cm)")
-    if s.n_loops_closed != ref["loops"]:
-        raise AssertionError(f"[loop] {s.n_loops_closed} loops closed, the reference "
+    if s.n_loops_closed < ref["loops"] or (not extra_loops and s.n_loops_closed != ref["loops"]):
+        raise AssertionError(f"{tag} {s.n_loops_closed} loops closed, the reference "
                              f"{ref['loops']}")
-    for c, r, nb in zip(got, ref["closures"], closure_nb):
-        if abs(c["kf_seq"] - r["kf_seq"]) > LOOP_KF_SLACK:
-            raise AssertionError(f"[loop] closure at keyframe {c['kf_seq']}, the reference's at "
-                                 f"{r['kf_seq']} (within {LOOP_KF_SLACK} required)")
-        if not (c["cand_frame"] == r["cand_frame"] or c["cand_frame"] in
-                r["cand_neighbour_frames"] or r["cand_frame"] in nb):
-            raise AssertionError(f"[loop] closure candidate at frame {c['cand_frame']} is neither "
-                                 f"the reference's ({r['cand_frame']}) nor covisible with it")
+    matched = []
+    for r in ref["closures"]:
+        hit = [i for i, (c, nb) in enumerate(zip(got, closure_nb)) if i not in matched and
+               abs(c["kf_seq"] - r["kf_seq"]) <= LOOP_KF_SLACK and
+               (c["cand_frame"] == r["cand_frame"] or c["cand_frame"] in
+                r["cand_neighbour_frames"] or r["cand_frame"] in nb)]
+        if not hit:
+            raise AssertionError(f"{tag} no closure within {LOOP_KF_SLACK} keyframes of the "
+                                 f"reference's at keyframe {r['kf_seq']} with its candidate "
+                                 f"(frame {r['cand_frame']}) or one covisible with it: "
+                                 f"{[(c['kf_seq'], c['cand_frame']) for c in got]}")
+        matched.append(hit[0])
+    extra = [c for i, c in enumerate(got) if i not in matched]
+    if any(not _genuine(poses, c) for c in extra):
+        raise AssertionError(f"{tag} a closure the reference did not make joins two places: "
+                             f"{[(c['kf_frame'], c['cand_frame']) for c in extra]}")
     if len(traj) < LOOP_TRACKED_FLOOR * len(poses):
-        raise AssertionError(f"[loop] {len(traj)} of {len(poses)} frames tracked")
+        raise AssertionError(f"{tag} {len(traj)} of {len(poses)} frames tracked")
     if not ate <= 2 * ref["ate_m"] + 0.01:
-        raise AssertionError(f"[loop] ATE {ate:.4f} m > 2 x the reference's {ref['ate_m']:.4f} "
+        raise AssertionError(f"{tag} ATE {ate:.4f} m > 2 x the reference's {ref['ate_m']:.4f} "
                              f"m + 1 cm")
     bad = _map_finite(s.m)
     if bad:
-        raise AssertionError(f"[loop] non-finite {bad} in the map")
+        raise AssertionError(f"{tag} non-finite {bad} in the map")
     edges = {tuple(e) for e in s.m.loop_edges.cpu().tolist()}
     if any((c["kf"], c["cand"]) not in edges for c in got):
-        raise AssertionError(f"[loop] loop_edges {sorted(edges)} lack a closure's pair")
-    return ate
+        raise AssertionError(f"{tag} loop_edges {sorted(edges)} lack a closure's pair")
+    return ate, len(traj)
 
 
 def _loop_kernel_parity(rec, errs):
@@ -2071,7 +2233,7 @@ def _median(xs):
     return statistics.median(xs) if xs else None
 
 
-def loop_phase(cfg, voc, dev, card, errs):
+def loop_phase(cfg, voc, dev, card, errs, clean):
     """The port's loop closing through SlamSystem.track_rgbd on the
     figure eight: a timed lap (counts set to 0 before, read after), the
     checks against REFERENCE_LOOP, the loop path's kernel inputs against
@@ -2081,10 +2243,7 @@ def loop_phase(cfg, voc, dev, card, errs):
     closing off, and PCG against the dense Schur solve on the final map's
     global BA problem. Returns (launches, K9's GBA-shape timing, the
     phase's results)."""
-    t0 = time.perf_counter()
-    poses, frames = render_loop_frames()
-    log(f"[loop] rendered the figure eight: {len(frames)} RGB-D frames {W}x{H} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    poses, frames = render_loop_frames(clean=clean)
     stages, rec, k9_gba, times, syncs, closure_nb = [], {}, [0], [], [], []
     launch.reset_launches()
     t0 = time.perf_counter()
@@ -2092,7 +2251,7 @@ def loop_phase(cfg, voc, dev, card, errs):
         s = _loop_lap(cfg, voc, frames, dev, times, syncs, closure_nb)
     lap_s = time.perf_counter() - t0
     launches = dict(launch.LAUNCHES)
-    ate = _loop_check(cfg, s, poses, closure_nb, REFERENCE_LOOP)
+    ate, _ = _loop_check(cfg, s, poses, closure_nb, REFERENCE_LOOP)
     log(f"[loop] launches over the lap: {launches}; K9 at C={cfg.max_keyframes}: "
         f"{k9_gba[0]}")
     missing = [k for k in ("best_two", "best_two_node", "proj_match", "pose_lm", "ba_edge")
@@ -2185,7 +2344,8 @@ def loop_phase(cfg, voc, dev, card, errs):
            "correct_loop_ms": stage("correct_loop"),
            "propagate_and_fuse_ms": [a + b for a, b in zip(stage("propagate"), stage("fuse"))],
            "essential_graph_ms": stage("essential_graph"), "gba_chunk_ms": chunks,
-           "loops": s.n_loops_closed, "ate_m": ate, "k9_gba_launches": k9_gba[0], "keyframes_inserted": s._kf_seq_host}
+           "loops": s.n_loops_closed, "ate_m": ate, "k9_gba_launches": k9_gba[0], "keyframes_inserted": s._kf_seq_host,
+           "plain_frame_syncs": [syncs[i] for i in plain]}
     for k in range(s.n_loops_closed):
         res[f"closure_{k + 1}_stages_ms"] = {n: sum(stage(n, k)) for n, _ in LOOP_STAGES
                                             if n not in ("detect", "gba_chunk")}
@@ -2232,6 +2392,429 @@ def loop_phase(cfg, voc, dev, card, errs):
     return launches, k9_res, res
 
 
+# ---------------------------------------------------------------------------
+# [stereo] and [mono]: the other two sensors through SlamSystem
+# ---------------------------------------------------------------------------
+
+TRACKED_SLACK = 0.01        # [stereo]: frames tracked below the reference's, a share of all
+KF_COUNT_SLACK = 0.2        # keyframes in the map against the reference's (runs')
+MONO_INIT_SLACK = 3         # [mono]: frames the initialization may move from the reference runs'
+UR_TOL = 1e-3               # px: u_right where a SAD sum may round (tests/test_torch_stereo.py)
+UR_FLIP_FLOOR = 0.005       # rows matched on one side only
+INIT_POSE_TOL = 1e-4        # [mono]: initialize on the card against the CPU, per entry of R, t
+INIT_GOOD_FLOOR = 0.99      # rows of `good` that must agree
+PATH_KERNELS = ("pyramid", "dense_stage", "brief", "best_two", "proj_match", "pose_lm",
+                "epi_match", "ba_edge")
+
+
+def _input_timing(tag, name, shapes, kernel, twin, n_bytes, ops, card):
+    """A kernel at an input of this phase's path: ms per call (CUDA events
+    over back-to-back calls), device ms (queued), the twin's ms, the bound
+    (the smoke fails if the device time is below it)."""
+    ms, plain_ms, dev_ms = _event_ms(kernel, 20), _event_ms(twin, 5), _queued_ms(kernel)
+    bound_ms, bound_by = _bound(n_bytes, ops)
+    log(f"{tag} {card}: {name} at {shapes}: {ms:.4f} ms per call, device "
+        f"{dev_ms * 1e3:.1f} us queued, twin {plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
+        f"({bound_by})")
+    if dev_ms < bound_ms:
+        raise AssertionError(f"{tag} {name}: device time {dev_ms:.5f} ms below its bound "
+                             f"{bound_ms:.5f} ms")
+    return dict(shapes=shapes, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def _front_timing(tag, cfg, img, dev, card):
+    """K1, K2 and K3 on one image of a stereo pair (`_front_calls`)."""
+    _, _, front = _front_calls(cfg, img, dev, f"the right image, {H}x{W}")
+    return {name: _input_timing(tag, name, shapes, kernel, twin,
+                                ins if isinstance(ins, int) else _nbytes(ins) + _nbytes(kernel()),
+                                ops, card)
+            for name, (shapes, kernel, twin, ins, ops) in front.items()}
+
+
+def _stereo_matches_parity(cfg, pair, dev, what):
+    """The stereo coarse search and SAD (`ops/stereo.compute_stereo_matches`)
+    on the card against their run on the CPU on the same tensors (the
+    card's keypoints and pyramids): the rows matched on one side only at
+    most UR_FLIP_FLOOR, u_right and the disparity bf / depth bit for bit on
+    the level-0 rows of an integer-valued pair, within UR_TOL px elsewhere.
+    Returns the card's arguments."""
+    left, right = (torch.from_numpy(x).to(dev).to(torch.float32) for x in pair)
+    kl, pl = ex.extract_with_pyramid(left, cfg)
+    kr, pr = ex.extract_with_pyramid(right, cfg)
+    args = (kl.xy, kl.level, kl.desc, kl.valid, kr.xy, kr.level, kr.desc, kr.valid, pl, pr,
+            cfg.scale_factors, cfg.bf, cfg.fx)
+    ur, depth = (t.cpu() for t in stereo_ops.compute_stereo_matches(*args))
+    host = [a.cpu() for a in args[:8]] + [[lv.cpu() for lv in pyr] for pyr in args[8:10]]
+    ur_c, depth_c = stereo_ops.compute_stereo_matches(*host, *args[10:])
+    on, on_c = ur >= 0, ur_c >= 0
+    flips = int((on != on_c).sum())
+    both = on & on_c
+    integer = all(bool((x == np.round(x)).all()) for x in pair)
+    exact = both & (kl.level.cpu() == 0) if integer else torch.zeros_like(both)
+    disp, disp_c = cfg.bf / depth[both], cfg.bf / depth_c[both]
+    err = max(float((ur[both] - ur_c[both]).abs().max()), float((disp - disp_c).abs().max()))
+    log(f"[stereo] compute_stereo_matches on the card against the CPU, {what}: {int(on.sum())} "
+        f"/ {int(on_c.sum())} rows matched, {flips} on one side only; max |u_right diff| and "
+        f"|disparity diff| {err:.3g} px; {int(exact.sum())} level-0 rows of an integer-valued "
+        f"pair bit for bit")
+    if flips > UR_FLIP_FLOOR * ur.numel() or not err <= UR_TOL or int(both.sum()) < 50:
+        raise AssertionError(f"[stereo] compute_stereo_matches {what}: {flips} rows flipped, "
+                             f"max diff {err:.3g} px, {int(both.sum())} rows on both sides")
+    if not (torch.equal(ur[exact], ur_c[exact]) and torch.equal(depth[exact], depth_c[exact])):
+        raise AssertionError(f"[stereo] compute_stereo_matches {what}: level-0 rows of an "
+                             f"integer-valued pair differ from the CPU's")
+    return args
+
+
+def _stream_lap(tag, cfg, voc, frames, poses, dev, sync_ate):
+    """A fresh system streaming the frames at depth STREAM_DEPTH, then
+    flush(): at least LOOP_TRACKED_FLOOR of the frames tracked, the ATE
+    (Sim3-aligned for a monocular system) within max(3x the synchronous
+    lap's, 3 cm), a finite map. Returns its records."""
+    t0 = time.perf_counter()
+    st = _loop_lap(cfg, voc, frames, dev, depth=STREAM_DEPTH)
+    stream_s = time.perf_counter() - t0
+    traj = st.get_trajectory()
+    ate = trajectory.ate_rmse(traj, [(i / cfg.fps, T) for i, T in enumerate(poses)],
+                              with_scale=cfg.sensor == SENSOR_MONOCULAR)
+    res = {"stream_depth": STREAM_DEPTH, "stream_fps": len(poses) / stream_s,
+           "stream_tracked": len(traj), "stream_ate_m": ate, "stream_loops": st.n_loops_closed}
+    log(f"{tag} stream (depth {STREAM_DEPTH}): {len(traj)} of {len(poses)} frames tracked, "
+        f"{st.n_loops_closed} loops closed, ATE {ate * 100:.3f} cm, "
+        f"{res['stream_fps']:.2f} frames per second over the lap and the flush")
+    bad = _map_finite(st.m)
+    if bad or len(traj) < LOOP_TRACKED_FLOOR * len(poses) or not ate <= max(3 * sync_ate, 0.03):
+        raise AssertionError(f"{tag} stream: {len(traj)} frames tracked, ATE {ate:.4f} m (the "
+                             f"synchronous lap's {sync_ate:.4f} m), non-finite {bad}")
+    return res
+
+
+def _fmt(ms):
+    return "-" if ms is None else f"{ms:.2f}"
+
+
+def _split_kf(times, metrics, closures=()):
+    """Median wall ms of the calls without a keyframe, with one (no closure),
+    and the closure frames' ms."""
+    kf = {e["frame"] for e in metrics if e.get("kf")}
+    cl = set(closures)
+    return (_median([t for i, t in enumerate(times) if i and i not in kf]),
+            _median([t for i, t in enumerate(times) if i in kf - cl]),
+            [times[f] for f in sorted(cl)])
+
+
+def stereo_phase(voc, dev, card, errs, rgbd_syncs):
+    """EVAL.md's block-stereo row through SlamSystem.track_stereo with its
+    defaults (`block_config`, 780 pairs rendered on a thread pool while the
+    system tracks them), then flush(): checked against REFERENCE_STEREO
+    (the same states over the first frames and keyframes there within
+    SYSTEM_KF_SLACK, the frames tracked, the ATE, the loop closures, the
+    keyframe count, a finite map); each frame's K1, K2 and K3 launches (two
+    each: the left and the right image); its host syncs against the RGB-D
+    [loop] lap's; a stream lap at depth STREAM_DEPTH; the stereo matcher on
+    the card against the CPU and K1-K3 of a right image against their twins.
+    Counts set to 0 before the lap, read after. Returns (launches, results)."""
+    cfg = block_config()
+    poses, pairs = render_block_frames()
+    kept = []
+
+    def keep(gen):
+        for pair in gen:
+            kept.append(pair)
+            yield pair
+
+    times, syncs, closure_nb, states, front = [], [], [], [], []
+    launch.reset_launches()
+    t0 = time.perf_counter()
+    s = _loop_lap(cfg, voc, keep(pairs), dev, times, syncs, closure_nb, states=states,
+                  front=front)
+    lap_s = time.perf_counter() - t0
+    launches = dict(launch.LAUNCHES)
+    ref = REFERENCE_STEREO
+    log(f"[stereo] rendered and tracked {len(kept)} stereo pairs {W}x{H} in {lap_s:.1f} s; "
+        f"launches over the lap: {launches}")
+    # the reference's CPU run closes no loop on this row (its ATE 30 cm);
+    # EVAL.md's run on a TPU closed one: a genuine extra closure passes
+    ate, tracked = _loop_check(cfg, s, poses, closure_nb, ref, tag="[stereo]", extra_loops=True)
+    n = SEQ_FRAMES_CHECKED
+    kf = sorted(e["frame"] for e in s.metrics if e.get("kf"))
+    kf_n, ref_kf_n = [k for k in kf if k < n], [k for k in ref["kf_frames"] if k < n]
+    log(f"[stereo] frames 0-{n - 1}: states {states[:n]}, keyframes at {kf_n} (reference "
+        f"{ref_kf_n}); {int(s.m.n_keyframes)} keyframes in the map (reference "
+        f"{ref['keyframes']}), {tracked} frames tracked (reference {ref['tracked']})")
+    if states[:n] != ref["states"][:n]:
+        raise AssertionError(f"[stereo] states {states[:n]} != the reference's {ref['states'][:n]}")
+    if len(kf_n) != len(ref_kf_n) or any(abs(a - b) > SYSTEM_KF_SLACK
+                                         for a, b in zip(kf_n, ref_kf_n)):
+        raise AssertionError(f"[stereo] keyframes at {kf_n}, the reference's at {ref_kf_n}")
+    if tracked < ref["tracked"] - TRACKED_SLACK * len(poses):
+        raise AssertionError(f"[stereo] {tracked} frames tracked, the reference {ref['tracked']}")
+    if abs(int(s.m.n_keyframes) - ref["keyframes"]) > KF_COUNT_SLACK * ref["keyframes"]:
+        raise AssertionError(f"[stereo] {int(s.m.n_keyframes)} keyframes, the reference "
+                             f"{ref['keyframes']}")
+    missing = [k for k in PATH_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"[stereo] kernels never launched: {missing}")
+    per_frame = Counter(front)
+    if set(per_frame) != {(2, 2, 2)}:
+        raise AssertionError(f"[stereo] K1, K2, K3 launches per frame: {dict(per_frame)}; two "
+                             f"each expected")
+    kf_frames = {e["frame"] for e in s.metrics if e.get("kf")}
+    plain = [syncs[i] for i in range(1, len(syncs)) if i not in kf_frames]
+    log(f"[stereo] K1, K2, K3 launches per frame: {dict(per_frame)}; host syncs per frame "
+        f"without a keyframe: median {_median(plain)}, max {max(plain)} over {len(plain)} "
+        f"frames (the RGB-D [loop] lap's: median {_median(rgbd_syncs)}, max {max(rgbd_syncs)})")
+    if _median(plain) > _median(rgbd_syncs):
+        raise AssertionError(f"[stereo] host syncs per frame: median {_median(plain)} against "
+                             f"RGB-D's {_median(rgbd_syncs)}")
+
+    stream = _stream_lap("[stereo]", cfg, voc, kept, poses, dev, ate)
+    # the lap's per-frame times share the host with the renderers: the
+    # first STEREO_TIMED pairs again, alone
+    alone = []
+    timed = _loop_lap(cfg, voc, kept[:STEREO_TIMED], dev, alone)
+    alone_ms, alone_kf_ms, _ = _split_kf(alone, timed.metrics)
+    del timed
+
+    # the card against the CPU and the twins, and timings, at the lap's pairs
+    pair = kept[1]
+    args = _stereo_matches_parity(cfg, pair, dev, "frame 1 (float32)")
+    _stereo_matches_parity(cfg, tuple(np.clip(np.round(x), 0, 255).astype(np.uint8)
+                                      for x in kept[-1]),
+                           dev, f"frame {len(kept) - 1} quantized to uint8")
+    right = torch.from_numpy(pair[1]).to(dev)
+    front_image_parity(cfg, right, dev, errs, "[stereo] frame 1's right image")
+    log("[stereo] K1, K2, K3 on frame 1's right image: every level bit for bit against the "
+        "twins, one launch each")
+    left = torch.from_numpy(pair[0]).to(dev)
+    make = lambda: make_frame_stereo(left, right, cfg)      # noqa: E731
+    match = lambda: stereo_ops.compute_stereo_matches(*args)   # noqa: E731
+    plain_ms, kf_ms, closure_ms = _split_kf(times, s.metrics,
+                                           [c["kf_frame"] for c in s.loop_closures])
+    res = {"track_ms_median": plain_ms, "keyframe_track_ms_median": kf_ms,
+           "closure_track_ms": closure_ms, "lap_s": lap_s, "frames": len(kept),
+           "alone_track_ms_median": alone_ms, "alone_keyframe_track_ms_median": alone_kf_ms,
+           # the profiler's device time: both hold the host until the stream
+           # drains once a call, so they cannot queue behind a sleeping kernel
+           "make_frame_stereo_ms": _event_ms(make, 10),
+           "make_frame_stereo_device_ms": _device_ms(make, 5)[0],
+           "compute_stereo_matches_ms": _event_ms(match, 20),
+           "compute_stereo_matches_device_ms": _device_ms(match, 5)[0],
+           "compute_stereo_matches_device_activities": _device_ms(match, 5)[1],
+           "front_launches_per_frame": [2, 2, 2], "syncs_per_plain_frame_median": _median(plain),
+           **stream, "ate_m": ate,
+           "tracked": tracked, "loops": s.n_loops_closed, "keyframes": int(s.m.n_keyframes),
+           "keyframes_inserted": s._kf_seq_host,
+           "right_image": _front_timing("[stereo]", cfg, right.to(torch.float32), dev, card)}
+    log(f"[stereo] {card}: track_stereo median {_fmt(plain_ms)} ms per frame without a keyframe, "
+        f"{_fmt(kf_ms)} ms with one, closure frames {[round(t, 1) for t in closure_ms]} ms "
+        f"(the renderers running); the first {STEREO_TIMED} frames alone: {_fmt(alone_ms)} / "
+        f"{_fmt(alone_kf_ms)} ms; "
+        f"make_frame_stereo {res['make_frame_stereo_ms']:.3f} ms per call, device "
+        f"(profiler, a lower bound) {res['make_frame_stereo_device_ms']:.3f} ms; "
+        f"compute_stereo_matches {res['compute_stereo_matches_ms']:.3f} ms per call, device "
+        f"{res['compute_stereo_matches_device_ms']:.3f} ms, "
+        f"{res['compute_stereo_matches_device_activities']:.0f} device activities per call")
+    return launches, res
+
+
+@contextmanager
+def _mono_instruments(rec):
+    """Time the monocular initialization's parts (synchronized wall ms, in
+    rec["ms"] as (part, ms)) and record the inputs of its last attempt (the
+    one that initialized): the search's and K4's, the initializer's, and
+    K9's at C = 2 (the two-view BA)."""
+    saved = [(matching, "search_for_initialization"), (initializer, "initialize"),
+             (initializer, "_check_rt"), (system.SlamSystem, "_two_view_ba")]
+    originals = [getattr(o, n) for o, n in saved]
+    window, assemble = cm.window_best_two, cb.ba_assemble
+
+    def timed(part, fn, record=None):
+        def call(*args, **kw):
+            if record is not None:
+                rec[record] = (args, kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec.setdefault("ms", []).append((part, (time.perf_counter() - t0) * 1e3))
+            return out
+        return call
+
+    def search(*args, **kw):
+        def first(*a):
+            rec["k4"] = a
+            return window(*a)
+        cm.window_best_two = first
+        try:
+            return timed("search", originals[0], "search")(*args, **kw)
+        finally:
+            cm.window_best_two = window
+
+    def two_view(self, m, kf0, kf1):
+        def first(*a):
+            rec.setdefault("k9", a)
+            return assemble(*a)
+        cb.ba_assemble = first
+        try:
+            return timed("two_view_ba", originals[3])(self, m, kf0, kf1)
+        finally:
+            cb.ba_assemble = assemble
+
+    matching.search_for_initialization = search
+    initializer.initialize = timed("initialize", originals[1], "initialize")
+    initializer._check_rt = timed("check_rt", originals[2])
+    system.SlamSystem._two_view_ba = two_view
+    try:
+        yield
+    finally:
+        for (o, n), fn in zip(saved, originals):
+            setattr(o, n, fn)
+
+
+def mono_parity(rec, errs):
+    """The initialization on the card against its CPU run with the same
+    draws: SearchForInitialization's K4 launch and the whole search bit for
+    bit, `initialize` (its success and model equal, R and t within
+    INIT_POSE_TOL, `good` on INIT_GOOD_FLOOR of the rows), K9 at C = 2
+    every field bit for bit."""
+    k4 = rec["k4"]
+    for a, b, name in zip(cm.window_best_two(*k4), cm.window_best_two_plain(*k4),
+                          ("best", "index", "second")):
+        errs["best_two"] = max(errs["best_two"], _max_abs(a, b))
+        _require_equal(f"[mono] best_two at the initialization search {name}", a, b)
+    args, kw = rec["search"]
+    got = matching.search_for_initialization(*args, **kw)
+    want = matching.search_for_initialization(*(a.cpu() for a in args), **kw)
+    for a, b, name in zip(got, want, ("idx", "dist", "valid")):
+        _require_equal(f"[mono] search_for_initialization {name} (card against CPU)", a.cpu(), b)
+    args, kw = rec["initialize"]
+    seed = kw["generator"].initial_seed()
+    on_card = initializer.initialize(*args, generator=torch.Generator().manual_seed(seed))
+    on_cpu = initializer.initialize(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                                      for a in args),
+                                    generator=torch.Generator().manual_seed(seed))
+    dR = float((on_card.R21.cpu() - on_cpu.R21).abs().max())
+    dt = float((on_card.t21.cpu() - on_cpu.t21).abs().max())
+    good = float((on_card.good.cpu() == on_cpu.good).float().mean())
+    log(f"[mono] initialize on the card against the CPU (draws of seed {seed}): success "
+        f"{bool(on_card.success)} / {bool(on_cpu.success)}, homography "
+        f"{bool(on_card.used_homography)} / {bool(on_cpu.used_homography)}, max |R diff| "
+        f"{dR:.3g}, max |t diff| {dt:.3g}, good equal on {good:.2%} of the rows")
+    if bool(on_card.success) != bool(on_cpu.success) or \
+            bool(on_card.used_homography) != bool(on_cpu.used_homography) or \
+            not (dR <= INIT_POSE_TOL and dt <= INIT_POSE_TOL and good >= INIT_GOOD_FLOOR):
+        raise AssertionError("[mono] initialize on the card parts from its CPU run")
+    k9 = rec["k9"]
+    _lin_equal("[mono] K9 at C=2 (the two-view BA)", schur_ba.Lin(*cb.ba_assemble(*k9)),
+               schur_ba.Lin(*cb.ba_assemble_plain(*k9)), errs)
+    log(f"[mono] best_two at the initialization search "
+        f"({k4[0].shape[0]}x{k4[6].shape[0]}, window 100 px, octave 0), the whole search "
+        f"(card against CPU) and K9 at C=2 (E={k9[5].numel()}) bit for bit")
+
+
+def mono_phase(voc, dev, card, errs, clean):
+    """EVAL.md's fig8-mono row through SlamSystem.track_monocular with its
+    defaults (`mono_config`; the [loop] phase's clean renders through
+    ImperfectCamera(noise_sigma=2.0)), then flush(): checked against
+    REFERENCE_MONO's runs (the initialization frame, the frames tracked,
+    the Sim3-aligned ATE, the keyframe count, a finite map; the loops
+    reported); the initialization on the card against the CPU (`mono_parity`);
+    a stream lap at depth STREAM_DEPTH. Timed: track_monocular, an
+    initialization attempt's search, RANSAC and CheckRT, the two-view BA,
+    K4 at the init gate and K9 at C = 2. Counts set to 0 before the lap,
+    read after. Returns (launches, results)."""
+    cfg = mono_config()
+    poses, frames = render_mono_frames(clean)
+    rec, times, syncs, closure_nb, states, front = {}, [], [], [], [], []
+    launch.reset_launches()
+    t0 = time.perf_counter()
+    with _mono_instruments(rec):
+        s = _loop_lap(cfg, voc, frames, dev, times, syncs, closure_nb, states=states,
+                      front=front)
+    lap_s = time.perf_counter() - t0
+    launches = dict(launch.LAUNCHES)
+    refs = REFERENCE_MONO
+    gt = [(i / cfg.fps, T) for i, T in enumerate(poses)]
+    traj = s.get_trajectory()
+    ate = trajectory.ate_rmse(traj, gt, with_scale=True)
+    init = states.index(system.OK)
+    r_init = [r["init_frame"] for r in refs]
+    r_kf = [r["keyframes"] for r in refs]
+    log(f"[mono] tracked {len(traj)} of {len(poses)} frames in {lap_s:.1f} s, initialized at "
+        f"frame {init} (reference runs {r_init}); {int(s.m.n_keyframes)} keyframes in the map "
+        f"(reference runs {r_kf}), {s._kf_seq_host} inserted, {int(s.m.n_points)} points; "
+        f"{s.n_loops_closed} loops closed at "
+        f"{[(c['kf_seq'], c['kf_frame'], c['cand_frame']) for c in s.loop_closures]} "
+        f"(reference runs {[r['loops'] for r in refs]}: "
+        f"{[[(c['kf_seq'], c['kf_frame'], c['cand_frame']) for c in r['closures']] for r in refs]}"
+        f"); Sim3-aligned ATE {ate * 100:.3f} cm (reference runs "
+        f"{[round(r['ate_m'] * 100, 3) for r in refs]} cm); launches over the lap: {launches}")
+    if not min(r_init) - MONO_INIT_SLACK <= init <= max(r_init) + MONO_INIT_SLACK:
+        raise AssertionError(f"[mono] initialized at frame {init}, the reference runs at {r_init}")
+    if len(traj) < LOOP_TRACKED_FLOOR * len(poses):
+        raise AssertionError(f"[mono] {len(traj)} of {len(poses)} frames tracked")
+    if not ate <= 2 * max(r["ate_m"] for r in refs) + 0.01:
+        raise AssertionError(f"[mono] ATE {ate:.4f} m > 2 x the reference runs' largest + 1 cm")
+    if not (1 - KF_COUNT_SLACK) * min(r_kf) <= int(s.m.n_keyframes) <= \
+            (1 + KF_COUNT_SLACK) * max(r_kf):
+        raise AssertionError(f"[mono] {int(s.m.n_keyframes)} keyframes, the reference runs {r_kf}")
+    bad = _map_finite(s.m)
+    if bad:
+        raise AssertionError(f"[mono] non-finite {bad} in the map")
+    if any(not _genuine(poses, c) for c in s.loop_closures):
+        raise AssertionError(f"[mono] a closure joins two places: "
+                             f"{[(c['kf_frame'], c['cand_frame']) for c in s.loop_closures]}")
+    missing = [k for k in PATH_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"[mono] kernels never launched: {missing}")
+    if set(front) != {(1, 1, 1)}:
+        raise AssertionError(f"[mono] K1, K2, K3 launches per frame: {dict(Counter(front))}")
+    mono_parity(rec, errs)
+
+    stream = _stream_lap("[mono]", cfg, voc, frames, poses, dev, ate)
+
+    parts = {}
+    for part, ms in rec["ms"]:
+        parts.setdefault(part, []).append(ms)
+    kf_frames = {e["frame"] for e in s.metrics if e.get("kf")}
+    after = [syncs[i] for i in range(init + 1, len(syncs)) if i not in kf_frames]
+    plain_ms, kf_ms, closure_ms = _split_kf(times, s.metrics,
+                                           [c["kf_frame"] for c in s.loop_closures])
+    k4, k9 = rec["k4"], rec["k9"]
+    cand4 = cm.window_candidates(*k4[:5], *k4[6:10], k4[11])
+    pairs4 = int(k4[4].sum()) * int(k4[9].sum())
+    e9 = k9[5].numel()
+    res = {"track_ms_median": plain_ms, "keyframe_track_ms_median": kf_ms,
+           "closure_track_ms": closure_ms, "lap_s": lap_s, "init_frame": init,
+           "init_attempts": len(parts.get("initialize", [])),
+           "search_ms": parts.get("search"), "initialize_ms": parts.get("initialize"),
+           "check_rt_ms": parts.get("check_rt"), "two_view_ba_ms": parts.get("two_view_ba"),
+           "syncs_per_frame_after_init_median": _median(after),
+           "syncs_per_frame_after_init_max": max(after), "ate_m": ate, "tracked": len(traj),
+           "loops": s.n_loops_closed, "keyframes": int(s.m.n_keyframes), **stream,
+           "best_two_init": _input_timing(
+               "[mono]", "best_two (window form)",
+               f"{k4[0].shape[0]}x{k4[6].shape[0]}, the initialization search (100 px, octave 0)",
+               lambda: cm.window_best_two(*k4), lambda: cm.window_best_two_plain(*k4),
+               _proj_match_bytes(k4, cand4), k4[4].numel() + k4[9].numel() + 12 * pairs4
+               + 24 * int(cand4.sum()), card),
+           "ba_edge_two_view": _input_timing(
+               "[mono]", "ba_edge", f"E={e9} ({k9[2].shape[0]} points x {k9[5].shape[1]}), C=2, "
+               f"the two-view BA", lambda: cb.ba_assemble(*k9),
+               lambda: cb.ba_assemble_plain(*k9), _ba_assemble_bytes(k9), 600 * e9, card)}
+    log(f"[mono] {card}: track_monocular median {_fmt(plain_ms)} ms per frame without a keyframe, "
+        f"{_fmt(kf_ms)} ms with one, closure frames {[round(t, 1) for t in closure_ms]} ms; "
+        f"{res['init_attempts']} initialization attempts: search "
+        f"{[round(t, 2) for t in parts.get('search', [])]} ms, initialize (RANSAC and CheckRT) "
+        f"{[round(t, 2) for t in parts.get('initialize', [])]} ms, of it CheckRT "
+        f"{[round(t, 2) for t in parts.get('check_rt', [])]} ms; the two-view BA "
+        f"{[round(t, 2) for t in parts.get('two_view_ba', [])]} ms; host syncs per frame after "
+        f"the initialization without a keyframe: median {_median(after)}, max {max(after)}")
+    return launches, res
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -2260,7 +2843,11 @@ def main():
     log(f"[system] synth_vocabulary(10, 6): {voc.n_nodes} nodes, {voc.n_words} words on the "
         f"card ({_nbytes(voc.children, voc.centroids, voc.word_id, voc.word_weight) / 1e6:.1f} MB)")
     system_launches, system_res = system_phase(cfg, poses, frames, voc, dev, card)
-    loop_launches, k9_gba, loop_res = loop_phase(cfg, voc, dev, card, errs)
+    t0 = time.perf_counter()
+    clean = render_loop_clean()
+    log(f"[loop] rendered the figure eight: {len(clean[2])} frames {W}x{H} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    loop_launches, k9_gba, loop_res = loop_phase(cfg, voc, dev, card, errs, clean)
     if not launches["best_two_node"]:
         # no frame of the forced run fell back to the reference keyframe:
         # the node form's launches are the [system] phase's (relocalization)
@@ -2270,14 +2857,22 @@ def main():
         raise AssertionError(f"kernels never launched: {missing}")
     per_call = timing_phase(cfg, frames, uploads, inputs, results, recorded, syncs, reads,
                             events, dev, card)
-    log(f"[result] {card}: " + json.dumps({"system": system_res, "loop": loop_res}))
+    stereo_launches, stereo_res = stereo_phase(voc, dev, card, errs,
+                                               loop_res.pop("plain_frame_syncs"))
+    mono_launches, mono_res = mono_phase(voc, dev, card, errs, clean)
+    del clean
+    log(f"[result] {card}: " + json.dumps({"system": system_res, "loop": loop_res,
+                                           "stereo": stereo_res, "mono": mono_res}))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     # K7 is on no call chain of the main path: its `launches` are the side
     # run's (k7_path), and `main_path_launches` says what the main path gave;
     # `system_launches` are the [system] phase's, `loop_launches` the [loop]
-    # phase's (K9's `gba`: its launches and timing at the global BA's shape)
+    # phase's (K9's `gba`: its launches and timing at the global BA's shape),
+    # `stereo_launches` and `mono_launches` those of the [stereo] and [mono]
+    # laps; the timings at their new inputs beside them (K1-K3 on a stereo
+    # pair's right image, K4 at the initialization search, K9 at C = 2)
     froms = {"pose_normal_eqs": "a run of its own: no call chain of the main path reaches it",
              "best_two_node": "the [system] phase: relocalization's BoW search (no frame of "
                               "the main path fell back to the reference keyframe)"}
@@ -2287,10 +2882,16 @@ def main():
                  "launches": side_launches.get(name, launches[name]),
                  "main_path_launches": launches[name],
                  "system_launches": system_launches[name],
-                 "loop_launches": loop_launches[name], "max_abs_err": errs[name],
-                 **per_call[name]}
+                 "loop_launches": loop_launches[name],
+                 "stereo_launches": stereo_launches[name], "mono_launches": mono_launches[name],
+                 "max_abs_err": errs[name], **per_call[name]}
         if name == "ba_edge":
             entry["gba"] = k9_gba
+            entry["two_view"] = mono_res["ba_edge_two_view"]
+        if name == "best_two":
+            entry["init_search"] = mono_res["best_two_init"]
+        if name in FRONT_KERNELS:
+            entry["stereo_right_image"] = stereo_res["right_image"][name]
         if name in side_launches:
             entry["launches_from"] = froms[name]
         kernels.append(entry)

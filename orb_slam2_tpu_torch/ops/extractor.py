@@ -149,6 +149,11 @@ class ORBExtractor(nn.Module):
 
     def forward(self, img) -> Keypoints:
         """img: (H, W) float32 grayscale in [0, 255]."""
+        return self.forward_with_pyramid(img)[0]
+
+    def forward_with_pyramid(self, img):
+        """`forward`, and the image's pyramid (the list of levels K1 built),
+        for the stereo matcher's SAD, so no second pyramid is built."""
         if tuple(img.shape) != (self.height, self.width):
             raise ValueError(f"ORBExtractor for {self.height}x{self.width} images "
                              f"got {tuple(img.shape)}")
@@ -187,7 +192,7 @@ class ORBExtractor(nn.Module):
                                          torch.cat(xs_all), ca, sa, self.brief_points,
                                          self.budgets)
         desc = torch.cat([desc, torch.zeros((pad, 8), dtype=torch.int32, device=dev)])
-        return Keypoints(xy=xy, level=lvl, angle=ang, response=resp, desc=desc, valid=valid)
+        return Keypoints(xy=xy, level=lvl, angle=ang, response=resp, desc=desc, valid=valid), pyr
 
 
 @functools.lru_cache(maxsize=16)
@@ -199,3 +204,8 @@ def extractor_for(cfg: SlamConfig, height: int, width: int, device) -> ORBExtrac
 def extract(img, cfg: SlamConfig) -> Keypoints:
     """Full ORB extraction. img: (H, W) float32 grayscale in [0, 255]."""
     return extractor_for(cfg, img.shape[0], img.shape[1], img.device)(img)
+
+
+def extract_with_pyramid(img, cfg: SlamConfig):
+    """`extract`, and the image's pyramid (`ORBExtractor.forward_with_pyramid`)."""
+    return extractor_for(cfg, img.shape[0], img.shape[1], img.device).forward_with_pyramid(img)

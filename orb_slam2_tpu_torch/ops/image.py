@@ -1,6 +1,7 @@
 """Image primitives replacing the reference's OpenCV calls (port of
 `orb_slam2_tpu/ops/image.py`).
 
+- grayscale conversion (`src/Tracking.cc:252-278`, cv::cvtColor's weights)
 - 9x9 sigma=2 Gaussian blur with BORDER_REFLECT_101 (`src/ORBextractor.cc:1609-1615`)
 - bilinear resize with OpenCV's pixel-center convention (`src/ORBextractor.cc:1686-1691`)
 
@@ -15,6 +16,15 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def rgb_to_gray(img, bgr: bool = False):
+    """(H,W,3) -> (H,W) float32 with OpenCV's weights 0.299 / 0.587 / 0.114
+    (RGB order; bgr=True for OpenCV's channel order)."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32, device=img.device)
+    if bgr:
+        w = w.flip(0)
+    return torch.tensordot(img.to(torch.float32), w, dims=([-1], [0]))
 
 
 @functools.lru_cache(maxsize=None)

@@ -164,6 +164,32 @@ def search_by_projection_frame(
     return Matches(best_idx, best, keep)
 
 
+def search_for_initialization(
+    kp1_xy, kp1_level, kp1_desc, kp1_valid, kp1_angle,
+    kp2_xy, kp2_level, kp2_desc, kp2_valid, kp2_angle,
+    window: float = 100.0, nn_ratio: float = 0.9, check_rotation: bool = True,
+):
+    """The monocular initialization's wide-window search
+    (`ORBmatcher::SearchForInitialization`, `src/ORBmatcher.cc:580-759`):
+    frame 1's keypoints against frame 2's within a square window of
+    `window` px, octave 0 on both sides, TH_LOW, the best / second-best
+    ratio and the rotation histogram. The gate and the reduction are K4's
+    window form: the sources masked to octave 0, the targets' octave range
+    (0, 0) around it, no right coordinates (no stereo test)."""
+    n1, n2 = kp1_xy.shape[0], kp2_xy.shape[0]
+    dev = kp1_xy.device
+    best, best_idx, second = cuda_match.window_best_two(
+        kp1_xy, torch.full((n1,), window, device=dev), kp1_level,
+        torch.full((n1,), -1.0, device=dev), (kp1_valid & (kp1_level == 0)).contiguous(),
+        kp1_desc, kp2_xy, kp2_level, torch.full((n2,), -1.0, device=dev), kp2_valid, kp2_desc,
+        (0, 0))
+    accept = (best <= TH_LOW) & (best < nn_ratio * second) & kp1_valid
+    if check_rotation:
+        accept = rotation_consistency(kp1_angle, kp2_angle, accept, best_idx)
+    keep = resolve_conflicts(best_idx, best, accept, n2)
+    return Matches(best_idx, best, keep)
+
+
 def search_by_node(
     node_a, desc_a, valid_a, angle_a,
     node_b, desc_b, valid_b, angle_b,

@@ -1,8 +1,8 @@
 """Per-frame data record construction (port of
 `orb_slam2_tpu/pipeline/frame.py`).
 
-`Frame` (`src/Frame.cc:119-205`): ORB extraction, undistortion and RGB-D
-depth association, one function per sensor type. Images may arrive as
+`Frame` (`src/Frame.cc:119-205`): ORB extraction, undistortion and the
+stereo or RGB-D depth association, one function per sensor type. Images may arrive as
 uint8 (gray) and uint16 (depth) tensors and are cast on their device.
 """
 from __future__ import annotations
@@ -63,6 +63,19 @@ def make_frame_monocular(img, cfg: SlamConfig, init: bool = False) -> FrameData:
                      valid=kps.valid, ur=neg, depth=neg)
 
 
+def make_frame_stereo(img_left, img_right, cfg: SlamConfig) -> FrameData:
+    """A rectified stereo pair (the reference's requirement), so raw ==
+    undistorted coordinates. Each image is extracted once and its pyramid
+    goes on to the SAD refinement: one K1, K2 and K3 launch per image."""
+    kl, pyr_l = extractor.extract_with_pyramid(img_left.to(torch.float32), cfg)
+    kr, pyr_r = extractor.extract_with_pyramid(img_right.to(torch.float32), cfg)
+    ur, depth = stereo_ops.compute_stereo_matches(
+        kl.xy, kl.level, kl.desc, kl.valid, kr.xy, kr.level, kr.desc, kr.valid,
+        pyr_l, pyr_r, cfg.scale_factors, cfg.bf, max_disparity=cfg.fx)
+    return FrameData(xy=kl.xy, xy_raw=kl.xy, level=kl.level, angle=kl.angle,
+                     response=kl.response, desc=kl.desc, valid=kl.valid, ur=ur, depth=depth)
+
+
 def make_frame_rgbd(img, depth_img, cfg: SlamConfig) -> FrameData:
     img = img.to(torch.float32)
     depth_img = depth_img.to(torch.float32)  # cfg.depth_map_factor rescales below
@@ -77,7 +90,7 @@ def make_frame_rgbd(img, depth_img, cfg: SlamConfig) -> FrameData:
 
 def make_frame(cfg: SlamConfig, img, img_right=None, depth_img=None) -> FrameData:
     if cfg.sensor == SENSOR_STEREO:
-        raise NotImplementedError("make_frame: the stereo front end is not ported yet")
+        return make_frame_stereo(img, img_right, cfg)
     if cfg.sensor == SENSOR_RGBD:
         return make_frame_rgbd(img, depth_img, cfg)
     return make_frame_monocular(img, cfg)

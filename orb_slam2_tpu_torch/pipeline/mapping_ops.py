@@ -209,8 +209,16 @@ def _triangulate_decide(cfg: SlamConfig, m: mapstate.MapState, kf1, kf2, match,
     O2 = se3.translation(se3.inverse(T2))                        # (B,3)
     baseline = _norm(O2 - O1)
     if cfg.sensor == SENSOR_MONOCULAR:
-        raise NotImplementedError("monocular triangulation is not ported yet")
-    baseline_ok = baseline > cfg.baseline
+        # the baseline against each neighbour's median scene depth
+        # (ComputeSceneMedianDepth, q = 2)
+        obs2 = m.kf_obs[kf2]                                     # (B,N)
+        z2 = se3.apply(T2[:, None], m.pt_pos[torch.clamp(obs2, 0, m.capacity_pt - 1).long()])
+        z2 = torch.where(obs2 >= 0, z2[..., 2], float("inf"))
+        mid = torch.clamp((obs2 >= 0).sum(dim=-1) // 2, 0, N - 1)
+        med = torch.gather(torch.sort(z2, dim=-1).values, 1, mid[:, None])[:, 0]
+        baseline_ok = baseline / torch.clamp(med, min=1e-9) > 0.01
+    else:
+        baseline_ok = baseline > cfg.baseline
 
     un1 = (mapstate.take(m.kf_obs, kf1) < 0) & mapstate.take(m.kf_feat_valid, kf1)
     xy1 = mapstate.take(m.kf_xy, kf1)

@@ -1,5 +1,5 @@
 """The system facade, the tracking state machine and the keyframe events
-(port of `orb_slam2_tpu/pipeline/system.py`, the RGB-D path).
+(port of `orb_slam2_tpu/pipeline/system.py`).
 
 `System` / `Tracking` / `LocalMapping` (`src/System.cc:18-147`,
 `src/Tracking.cc:431-767`, `src/LocalMapping.cc:71-159`): the reference's
@@ -19,12 +19,13 @@ by running LocalMapping in its own thread). On a CUDA device the retire
 payload goes back by a non-blocking copy into pinned host memory behind a
 CUDA event, which the retire waits on.
 
-Ported: RGB-D tracking and initialization, the natural keyframe policy,
-relocalization from LOST (`_relocalize`), loop closing with the global BA
-spread over later keyframes (`loop_closing.py`) and the periodic global
-BA, localization mode, reset, trajectory export. Not ported yet (ROADMAP
-Queue 1): monocular and stereo (item 4), the sharded global BA and the
-two-device split (item 5), the frame drawer (item 6); each raises
+Ported: RGB-D, stereo and monocular tracking and initialization (the
+monocular two-view bootstrap in `_initialize_monocular`), the natural
+keyframe policy, relocalization from LOST (`_relocalize`), loop closing
+with the global BA spread over later keyframes (`loop_closing.py`) and the
+periodic global BA, localization mode, reset, trajectory export. Not
+ported yet (ROADMAP Queue 1): the sharded global BA and the two-device
+split (item 5), the frame drawer (item 6); each raises
 NotImplementedError.
 """
 from __future__ import annotations
@@ -42,10 +43,10 @@ from ..bow import vocabulary as bow_voc
 from ..geometry import se3
 from ..mapstate import map as mapstate
 from ..ops import matching
-from ..solvers import pnp, pose_opt
+from ..solvers import initializer, pnp, pose_opt, schur_ba
 from ..utils.config import SlamConfig, SENSOR_MONOCULAR
 from . import loop_closing, mapping_ops, tracking_ops, tracking_step
-from .frame import FrameData, make_frame_rgbd
+from .frame import FrameData, make_frame_monocular, make_frame_rgbd, make_frame_stereo
 
 NOT_INITIALIZED = 0
 OK = 1
@@ -106,7 +107,8 @@ def _not_ported(what: str, item: int):
 
 
 class SlamSystem:
-    """Construct once, call `track_rgbd` per frame, then `flush()` and
+    """Construct once, call `track_rgbd`, `track_stereo` or
+    `track_monocular` (the config's sensor) per frame, then `flush()` and
     `get_trajectory()`. `device` holds the map and runs the kernels ("cuda",
     the default) or their plain twins ("cpu"). Loop closing is on by
     default, as in the reference."""
@@ -153,6 +155,8 @@ class SlamSystem:
         self.frame_id = 0
         self.last_kf_frame_id = 0
         self.last_reloc_frame_id = -(1 << 30)
+        self.init_frame: Optional[FrameData] = None   # monocular: the initial frame
+        self.init_ts = 0.0
         self._n_kf_host = None        # host mirror of n_keyframes (lazy)
         self._kf_seq_host = 0         # keyframes inserted
         # stream: frames dispatched before the last keyframe insertion skip
@@ -195,10 +199,34 @@ class SlamSystem:
     # ------------------------------------------------------------------
 
     def track_monocular(self, img, timestamp: float):
-        raise _not_ported("monocular tracking", 4)
+        """One monocular frame: gray image (H,W) uint8 or float. Before the
+        map is initialized the extraction budget doubles (the reference's
+        mpIniORBextractor, src/Tracking.cc:188-190,398), and such a frame
+        leaves the stream. Returns Tcw (4,4) as a numpy array, None when the
+        frame was not tracked, or PENDING while it is in flight in the
+        stream."""
+        if self.state == OK:
+            images = (self._upload(img),)
+            if self.pipeline_depth > 0:
+                return self._track_stream(images, timestamp, "mono")
+            return self._track(None, timestamp, images=images, sensor="mono")
+        self._flush_pipeline()
+        f = make_frame_monocular(self._upload(img), self.cfg,
+                                 init=self.state == NOT_INITIALIZED)
+        return self._track(f, timestamp)
 
     def track_stereo(self, img_left, img_right, timestamp: float):
-        raise _not_ported("stereo tracking", 4)
+        """One rectified stereo pair: gray images (H,W) uint8 or float.
+        Returns Tcw (4,4) as a numpy array, None when the frame was not
+        tracked, or PENDING while it is in flight in the stream."""
+        if self.state == OK:
+            images = (self._upload(img_left), self._upload(img_right))
+            if self.pipeline_depth > 0:
+                return self._track_stream(images, timestamp, "stereo")
+            return self._track(None, timestamp, images=images, sensor="stereo")
+        self._flush_pipeline()
+        f = make_frame_stereo(self._upload(img_left), self._upload(img_right), self.cfg)
+        return self._track(f, timestamp)
 
     def track_rgbd(self, img, depth, timestamp: float):
         """One RGB-D frame: gray image (H,W) uint8 or float, depth (H,W) in
@@ -216,11 +244,16 @@ class SlamSystem:
 
     def _track(self, f: Optional[FrameData], timestamp: float, images=None, sensor=None):
         if self.state == NOT_INITIALIZED:
-            Tcw = self._initialize_depth(f, timestamp)
+            Tcw = self._initialize(f, timestamp)
         else:
             Tcw = self._track_frame(f, timestamp, images=images, sensor=sensor)
         self.frame_id += 1
         return Tcw
+
+    def _initialize(self, f: FrameData, timestamp: float):
+        if self.cfg.sensor == SENSOR_MONOCULAR:
+            return self._initialize_monocular(f, timestamp)
+        return self._initialize_depth(f, timestamp)
 
     def _initialize_depth(self, f: FrameData, timestamp: float):
         """StereoInitialization (`src/Tracking.cc:774-860`): more than 500
@@ -244,6 +277,125 @@ class SlamSystem:
         eye = np.eye(4, dtype=np.float32)
         self._record(timestamp, eye, self.ref_kf, False)
         return eye
+
+    def _initialize_monocular(self, f: FrameData, timestamp: float):
+        """MonocularInitialization (`src/Tracking.cc:864-944`): a frame with
+        more than 100 features becomes the initial frame; the next one is
+        matched against it (SearchForInitialization on K4's window form),
+        and at 100 matches or more the two-view initializer runs (its
+        RANSAC sets drawn from a CPU generator seeded with the frame id).
+        Too few matches drop the initial frame; a failed initialization
+        keeps it."""
+        cfg = self.cfg
+        n = int(f.n)
+        if self.init_frame is None or n <= 100:
+            self.init_frame = f if n > 100 else None
+            self.init_ts = timestamp
+            return None
+        ref = self.init_frame
+        mm = matching.search_for_initialization(ref.xy, ref.level, ref.desc, ref.valid, ref.angle,
+                                                f.xy, f.level, f.desc, f.valid, f.angle)
+        if int(mm.valid.sum()) < 100:
+            self.init_frame = None
+            return None
+        p2 = f.xy[torch.clamp(mm.idx, 0, f.xy.shape[0] - 1).long()]
+        res = initializer.initialize(ref.xy, p2, mm.valid, float(cfg.fx), float(cfg.fy),
+                                     float(cfg.cx), float(cfg.cy),
+                                     generator=torch.Generator().manual_seed(self.frame_id))
+        if not bool(res.success):
+            return None
+        m, kf0, kf1 = self._initial_map(ref, f, mm, res, timestamp)
+
+        # the scene's scale: keyframe 0's median depth becomes 1
+        obs0 = m.kf_obs[kf0]
+        on = obs0 >= 0
+        z = torch.where(on, m.pt_pos[torch.clamp(obs0, 0, m.capacity_pt - 1).long(), 2],
+                        float("inf"))
+        nv = int(on.sum())
+        if nv < 50:
+            return None
+        med = float(torch.sort(z).values[nv // 2])
+        if med <= 0:
+            return None
+        inv_med = 1.0 / med
+        T1 = mapstate.take(m.kf_pose, kf1).clone()
+        T1[:3, 3] *= inv_med
+        m = m._replace(kf_pose=m.kf_pose.index_copy(0, kf1.view(1), T1[None]),
+                       pt_pos=torch.where(m.pt_valid[:, None], m.pt_pos * inv_med, m.pt_pos))
+
+        self.m = m
+        self.state = OK
+        self.ref_kf = int(kf1)
+        self.last_kf_frame_id = self.frame_id
+        self._kf_seq_host += 2
+        self._n_kf_host = None
+        Tcw = mapstate.take(m.kf_pose, kf1)
+        self._set_last(f, Tcw, m.kf_obs[self.ref_kf])
+        self.velocity = None
+        self._on_keyframe_inserted(int(kf0), ref)
+        self._on_keyframe_inserted(self.ref_kf, f)
+        eye = np.eye(4, dtype=np.float32)
+        self._record(self.init_ts, eye, int(kf0), False)
+        self._record(timestamp, eye, self.ref_kf, False)
+        return self.last_Tcw
+
+    def _initial_map(self, ref: FrameData, f: FrameData, mm, res, timestamp: float):
+        """CreateInitialMapMonocular (`src/Tracking.cc:944-1127`): the two
+        keyframes (the initial one at the reference's frame id, the frame
+        before this one), a point for every good triangulation bound in
+        both, their descriptors and normals, and the full BA of the two
+        views. Returns (map, kf0, kf1)."""
+        cfg, dev = self.cfg, self.device
+        N = cfg.max_keypoints
+        unbound = torch.full((N,), INVALID, dtype=torch.int32, device=dev)
+        m, kf0 = mapstate.add_keyframe(self.m, torch.eye(4, device=dev), ref.xy, ref.level,
+                                       ref.angle, ref.desc, ref.ur, ref.depth, ref.valid, unbound,
+                                       self.frame_id - 1, self.init_ts)
+        m, kf1 = mapstate.add_keyframe(m, se3.make(res.R21, res.t21), f.xy, f.level, f.angle,
+                                       f.desc, f.ur, f.depth, f.valid, unbound, self.frame_id,
+                                       timestamp)
+        slots = mapstate.allocate_points(m, res.good)
+        m = mapstate.add_points(m, slots, res.points, ref.desc, kf0,
+                                torch.zeros((), dtype=torch.int32, device=dev))
+        okc = res.good & (slots >= 0)
+        m = mapstate.bind_observations(m, kf0, torch.arange(N, dtype=torch.int32, device=dev),
+                                       slots, okc)
+        m = mapstate.bind_observations(m, kf1, mm.idx, slots, okc & mm.valid)
+        m = mapstate.update_connections(m, kf1)
+        P = m.capacity_pt
+        pmask = mapstate.put_drop(torch.zeros((P,), dtype=torch.bool, device=dev),
+                                  torch.where(okc, slots, torch.full_like(slots, P)),
+                                  torch.ones((), dtype=torch.bool, device=dev))
+        m = mapstate.update_point_descriptors(m, pmask)
+        m = mapstate.update_point_normals(m, pmask, cfg.scale_factors)
+        m = mapstate.refresh_obs_table(m)
+        return self._two_view_ba(m, kf0, kf1), kf0, kf1
+
+    def _two_view_ba(self, m: mapstate.MapState, kf0, kf1):
+        """The full BA of the two initial keyframes (the reference's global
+        BA, 20 iterations): keyframe 0 fixed, every point with its two
+        observations, 10 + 10 LM iterations through K9 at C = 2."""
+        K, N, P = m.capacity_kf, m.n_feat, m.capacity_pt
+        obs_kf, obs_ft, obs_on = mapstate.point_observations(m, max_obs=4)
+        sel = torch.argsort((~m.pt_valid).to(torch.uint8), stable=True)[:self.cfg.max_keypoints]
+        sel_ok = m.pt_valid[sel]
+        okf, oft, oon = obs_kf[sel][:, :2], obs_ft[sel][:, :2], obs_on[sel][:, :2]
+        slot = torch.where(okf == kf0, 0, torch.where(okf == kf1, 1, INVALID))
+        slot = torch.where(oon, slot, INVALID).to(torch.int32)
+        kfc = torch.clamp(okf, 0, K - 1).long()
+        ftc = torch.clamp(oft, 0, N - 1).long()
+        poses = torch.stack([mapstate.take(m.kf_pose, kf0), mapstate.take(m.kf_pose, kf1)])
+        prob = schur_ba.BAProblem(
+            poses=poses, cam_valid=torch.ones((2,), dtype=torch.bool, device=poses.device),
+            cam_fixed=torch.tensor([True, False], device=poses.device),
+            points=m.pt_pos[sel], pt_valid=sel_ok, obs_cam=slot,
+            obs_uvr=torch.cat([m.kf_xy[kfc, ftc], m.kf_ur[kfc, ftc][..., None]], dim=-1),
+            obs_level=m.kf_level[kfc, ftc])
+        res = schur_ba.solve_ba(self.cam, prob, self.cfg.level_sigma2, iters_a=10, iters_b=10)
+        return m._replace(
+            kf_pose=m.kf_pose.index_copy(0, kf1.view(1), res.poses[1:]),
+            pt_pos=mapstate.put_drop(m.pt_pos, torch.where(sel_ok, sel, torch.full_like(sel, P)),
+                                     res.points))
 
     # ------------------------------------------------------------------
     # Per-frame tracking
@@ -719,6 +871,7 @@ class SlamSystem:
         self._gba_chunks_left = 0
         self.state = NOT_INITIALIZED
         self.velocity = None
+        self.init_frame = None
         self.last_frame = None
         self.ref_kf = 0
         self.last_kf_frame_id = self.frame_id

@@ -22,7 +22,8 @@ from ..ops import matching
 from ..solvers import pose_opt
 from ..utils.config import SlamConfig, SENSOR_MONOCULAR, SENSOR_RGBD
 from . import tracking_ops
-from .frame import FrameData, _camera, make_frame_monocular, make_frame_rgbd
+from .frame import (FrameData, _camera, make_frame_monocular, make_frame_rgbd,
+                    make_frame_stereo)
 from .mapping_ops import unproject
 
 INVALID = -1
@@ -106,11 +107,11 @@ def full_tracking_step_from_images(cfg: SlamConfig, m: mapstate.MapState, images
                                    min_local_inliers: int, sensor: str
                                    ) -> TrackStepResult:
     """Frame construction and the tracking step: the steady-state per-frame
-    path. images: (img,) mono, (img, depth) rgbd; stereo is not ported yet."""
+    path. images: (img,) mono, (img, depth) rgbd, (left, right) stereo."""
     if sensor == "rgbd":
         cur = make_frame_rgbd(images[0], images[1], cfg)
     elif sensor == "stereo":
-        raise NotImplementedError("the stereo front end is not ported yet")
+        cur = make_frame_stereo(images[0], images[1], cfg)
     else:
         cur = make_frame_monocular(images[0], cfg)
     return _step(cfg, m, cur, last, last_pts, last_pts_valid, last_matched_pt,

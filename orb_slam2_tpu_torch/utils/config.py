@@ -56,6 +56,16 @@ def load_opencv_yaml(path: str) -> dict:
     return yaml.safe_load(text) or {}
 
 
+def opencv_matrix(node):
+    """Convert a parsed opencv-matrix node ({rows, cols, data}) to ndarray."""
+    import numpy as np
+
+    if isinstance(node, dict):
+        return np.asarray(node["data"], np.float64).reshape(
+            int(node["rows"]), int(node["cols"]))
+    return np.asarray(node, np.float64)
+
+
 @dataclasses.dataclass(frozen=True)
 class SlamConfig:
     # Camera (reference YAML `Camera.*`)

@@ -2,7 +2,8 @@
 """The JAX reference's numbers for `chip_smoke.py` (the PyTorch/CUDA port's
 smoke run), measured on the CPU with the reference package's XLA path.
 
-    env JAX_PLATFORMS=cpu python scripts/chip_smoke_reference.py [--system-only | --loop-only]
+    env JAX_PLATFORMS=cpu python scripts/chip_smoke_reference.py \
+        [--system-only | --loop-only | --stereo-only | --mono-only]
 
 It renders chip_smoke's frames (the reference bench's first N_FRAMES poses,
 640x480, 1000 features, RGB-D), extracts them with the port's front end (as
@@ -38,9 +39,21 @@ chip_smoke's figure eight (`render_loop_frames`, EVAL.md's fig8-rgbd row,
 for each closure, its keyframe sequence number, the frames of its keyframe
 and candidate and of the candidate's covisible keyframes; the frames
 tracked, the keyframes inserted and the ATE.
+
+`--stereo-only` gives the `[stereo]` phase's numbers (`REFERENCE_STEREO`):
+the same lap over chip_smoke's street canyon (`render_block_frames`,
+EVAL.md's block-stereo row, 780 stereo pairs) handed the port's stereo
+frames (its extraction and SAD matcher on the CPU), with the state after
+every frame and the keyframe frames besides. `--mono-only` gives the
+`[mono]` phase's (`REFERENCE_MONO`): three laps over chip_smoke's
+monocular figure eight (`render_mono_frames`, EVAL.md's fig8-mono row),
+the initializer's RANSAC sets drawn from PRNGKey(frame_id + k) for k = 0,
+1, 2 (monocular initialization varies with its draws), each with its
+initialization frame and its Sim3-aligned ATE.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import time
@@ -65,6 +78,7 @@ _fuse_decide = jax.jit(jmo._fuse_decide, static_argnums=0)
 # XLA fuses the two differently, and pt_min_dist comes out one float32 ulp
 # apart (1.2e-7 relative) on ~1 % of the points; every other field is equal
 STAGE_TOL = 1e-6
+MONO_KEYS = 3       # monocular reference runs, RANSAC keys PRNGKey(frame_id + k), k < 3
 
 
 def jax_mapping_stages(cfg, m, kf_id):
@@ -233,19 +247,29 @@ def system_laps(jcfg, poses, jf):
     return out
 
 
-def loop_lap(jcfg, poses, jf):
-    """The reference SlamSystem's records for chip_smoke's [loop] phase."""
+def sensor_lap(jcfg, poses, frame_at, key_offset=0):
+    """The reference SlamSystem with its defaults (loop closing on, 4
+    amortized GBA chunks, the natural keyframe policy,
+    `synth_vocabulary(10, 6)`) over the sequence, handed the port's frames
+    (`frame_at(i, init)`: frame i, extracted with the doubled initialization
+    budget where init, as a monocular system extracts before it
+    initializes), then `flush()`. A monocular run draws its initializer's
+    RANSAC sets from PRNGKey(frame_id + key_offset). Returns the records
+    chip_smoke holds a phase to."""
     from orb_slam2_tpu.bow import vocabulary as jvoc
     from orb_slam2_tpu.pipeline import loop_closing as jlc
     from orb_slam2_tpu.pipeline import system as jsystem
+    from orb_slam2_tpu.solvers import initializer as jinit
     from orb_slam2_tpu.utils import trajectory as jtraj
 
     voc = jvoc.synth_vocabulary(10, 6)
     jts.full_tracking_step_from_images = \
         lambda cfg, m, f, *rest: jts.full_tracking_step(cfg, m, f, *rest[:-1])
     s = jsystem.SlamSystem(jcfg, vocabulary=voc)
+    mono = jcfg.sensor == jconfig.SENSOR_MONOCULAR
     closures, detections = [], []
-    correct_loop, dispatch = jlc.correct_loop, jlc.detect_loop_dispatch
+    correct_loop, dispatch, initialize = jlc.correct_loop, jlc.detect_loop_dispatch, \
+        jinit.initialize
 
     def record_correct(cfg, m, kf_id, cand_id, Scm, **kw):
         fid = np.asarray(m.kf_frame_id)
@@ -262,29 +286,46 @@ def loop_lap(jcfg, poses, jf):
         detections.append((s._kf_seq_host, [int(fid[c]) for c in np.asarray(cands) if c >= 0]))
         return cands
 
+    def keyed_initialize(*args, key=None, **kw):
+        return initialize(*args, key=jax.random.PRNGKey(s.frame_id + key_offset), **kw)
+
     jlc.correct_loop, jlc.detect_loop_dispatch = record_correct, record_dispatch
+    jinit.initialize = keyed_initialize
+    states, init_frame = [], None
     t0 = time.perf_counter()
-    for i, f in enumerate(jf):
-        if s.state == jsystem.OK:
+    try:
+        for i in range(len(poses)):
+            f = frame_at(i, mono and s.state == jsystem.NOT_INITIALIZED)
+            if s.state != jsystem.OK:
+                s._flush_pipeline()
             s._track(f, i / jcfg.fps)
-        else:
-            s._flush_pipeline()
-            s._track(f, i / jcfg.fps)
-        if i % 50 == 0:
-            print(f"frame {i}: {s.get_map_stats()} ({time.perf_counter() - t0:.0f} s)",
-                  flush=True)
-    s.flush()
-    jlc.correct_loop, jlc.detect_loop_dispatch = correct_loop, dispatch
+            states.append(int(s.state))
+            if init_frame is None and s.state == jsystem.OK:
+                init_frame = i
+            if i % 50 == 0:
+                print(f"frame {i}: {s.get_map_stats()} ({time.perf_counter() - t0:.0f} s)",
+                      flush=True)
+        s.flush()
+    finally:
+        jlc.correct_loop, jlc.detect_loop_dispatch = correct_loop, dispatch
+        jinit.initialize = initialize
     gt = [(i / jcfg.fps, T) for i, T in enumerate(poses)]
     traj = s.get_trajectory()
     print(f"detections (kf_seq, candidate frames): {[d for d in detections if d[1]]}")
     fid = np.asarray(s.m.kf_frame_id)
     return dict(loops=s.n_loops_closed, closures=closures, tracked=len(traj),
                 keyframes_inserted=s._kf_seq_host, keyframes=int(s.m.n_keyframes),
-                points=int(s.m.n_points),
+                points=int(s.m.n_points), init_frame=init_frame,
+                kf_frames=sorted(e["frame"] for e in s.metrics if e.get("kf")),
+                states=states,
                 loop_edge_frames=[[int(fid[i]), int(fid[j])]
                                   for i, j in np.asarray(s.m.loop_edges) if i >= 0],
-                ate_m=round(jtraj.ate_rmse(traj, gt), 6))
+                ate_m=round(jtraj.ate_rmse(traj, gt, with_scale=mono), 6))
+
+
+def loop_lap(jcfg, poses, jf):
+    """The reference SlamSystem's records for chip_smoke's [loop] phase."""
+    return sensor_lap(jcfg, poses, lambda i, init: jf[i])
 
 
 def main():
@@ -300,6 +341,32 @@ def main():
                                       "fps", "th_depth", "n_features", "max_keyframes",
                                       "max_map_points")})
     assert convert.config_from_jax(jcfg) == tcfg
+    if "--stereo-only" in sys.argv:
+        tcfg = cs.block_config()
+        jcfg = dataclasses.replace(jcfg, sensor=tcfg.sensor, bf=tcfg.bf)
+        assert convert.config_from_jax(jcfg) == tcfg
+        poses, pairs = cs.render_block_frames()
+        jf = (jax_frame(tframe.make_frame_stereo(torch.from_numpy(l), torch.from_numpy(r), tcfg))
+              for l, r in pairs)
+        print(f"REFERENCE_STEREO = {sensor_lap(jcfg, poses, lambda i, init: next(jf))}")
+        print(f"jax {jax.__version__}, {time.perf_counter() - t0:.0f} s")
+        return
+    if "--mono-only" in sys.argv:
+        tcfg = cs.mono_config()
+        jcfg = dataclasses.replace(jcfg, sensor=tcfg.sensor, bf=tcfg.bf)
+        assert convert.config_from_jax(jcfg) == tcfg
+        poses, frames = cs.render_mono_frames()
+        cache = {}
+
+        def frame_at(i, init):
+            if (i, init) not in cache:
+                cache[(i, init)] = jax_frame(tframe.make_frame_monocular(
+                    torch.from_numpy(frames[i]), tcfg, init=init))
+            return cache[(i, init)]
+        runs = [sensor_lap(jcfg, poses, frame_at, key_offset=k) for k in range(MONO_KEYS)]
+        print(f"REFERENCE_MONO = {runs}")
+        print(f"jax {jax.__version__}, {time.perf_counter() - t0:.0f} s")
+        return
     if "--loop-only" in sys.argv:
         poses, frames = cs.render_loop_frames()
         jf = [jax_frame(tframe.make_frame_rgbd(torch.from_numpy(g), torch.from_numpy(d), tcfg))

@@ -144,9 +144,20 @@ def test_make_frame_monocular_init_matches(scene):
 
 
 def test_make_frame_stereo_not_ported():
-    cfg = tconfig.SlamConfig(sensor=tconfig.SENSOR_STEREO)
-    with pytest.raises(NotImplementedError):
-        tframe.make_frame(cfg, torch.zeros((480, 640)), torch.zeros((480, 640)))
+    """The stereo front end is ported: make_frame dispatches a stereo
+    config to make_frame_stereo, which matches part of the left keypoints
+    (tests/test_torch_stereo.py holds it against the reference)."""
+    cfg = convert.config_from_jax(_jax_cfg(sensor=jconfig.SENSOR_STEREO))
+    world = tsyn.PlaneWorld(260.0, 260.0, 160.0, 120.0, 320, 240, z0=4.0)
+    T = np.eye(4)
+    T_r = T.copy()
+    T_r[0, 3] = cfg.baseline
+    left, right = (torch.from_numpy(world.render(P)) for P in (T, T_r))
+    got = tframe.make_frame(cfg, left, right)
+    want = tframe.make_frame_stereo(left, right, cfg)
+    for name, a, b in zip(tframe.FrameData._fields, got, want):
+        assert torch.equal(a, b), name
+    assert int((got.ur >= 0).sum()) > 0.3 * int(got.n)
 
 
 def test_stereo_from_rgbd_matches():

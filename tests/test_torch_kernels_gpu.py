@@ -995,3 +995,166 @@ def test_loop_path_on_the_card_equals_the_twins(cuda):
     pv = m_c.pt_valid
     assert torch.equal(m_g.pt_valid.cpu(), pv)
     assert torch.allclose(m_g.pt_pos.cpu()[pv], m_c.pt_pos[pv], atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The stereo and monocular paths' new inputs
+# ---------------------------------------------------------------------------
+
+def _block_pair(i=5, integer=True):
+    """A street-canyon stereo pair at 320x240 (EVAL.md's block-stereo
+    scene, cut to size), gray as float32 or quantized to uint8."""
+    from orb_slam2_tpu_torch.utils.synthetic import (BlockWorld, ImperfectCamera,
+                                                     city_block_trajectory)
+    world = BlockWorld(260.0, 260.0, 160.0, 120.0, 320, 240)
+    cam = ImperfectCamera(world, noise_sigma=3.0, exposure_amp=0.15)
+    T = city_block_trajectory(i + 1, corner_radius=6.0, speed=0.15, overshoot=0.12)[i]
+    left, right, _ = cam.render_stereo(T, 0.5, i)
+    if integer:
+        return tuple(np.clip(np.round(x), 0, 255).astype(np.uint8) for x in (left, right))
+    return left, right
+
+
+def _stereo_cfg():
+    from orb_slam2_tpu_torch.utils.config import SENSOR_STEREO
+    return SlamConfig(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240,
+                      bf=130.0, sensor=SENSOR_STEREO, n_features=400)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_stereo_front_end_on_the_card(cuda, monkeypatch, integer):
+    """make_frame_stereo on the card: K1, K2 and K3 twice (one launch each
+    per image), the whole frame equal to the twin path's on the card bit
+    for bit; the stereo matcher on the card against its CPU run on the same
+    tensors: level-0 rows of a uint8 pair bit for bit, u_right within 1e-3
+    px elsewhere, at most 0.5 % of the rows matched on one side only."""
+    from orb_slam2_tpu_torch.ops import stereo as stereo_ops
+    cfg = _stereo_cfg()
+    left, right = (torch.from_numpy(x).to(cuda) for x in _block_pair(integer=integer))
+    launch.reset_launches()
+    got = frame_mod.make_frame_stereo(left, right, cfg)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES == {**dict.fromkeys(launch.LAUNCHES, 0),
+                               "pyramid": 2, "dense_stage": 2, "brief": 2}
+    kl, pl = ex.extract_with_pyramid(left.to(torch.float32), cfg)
+    kr, pr = ex.extract_with_pyramid(right.to(torch.float32), cfg)
+    args = (kl.xy, kl.level, kl.desc, kl.valid, kr.xy, kr.level, kr.desc, kr.valid)
+    ur, depth = stereo_ops.compute_stereo_matches(*args, pl, pr, cfg.scale_factors, cfg.bf,
+                                                  cfg.fx)
+    assert torch.equal(ur, got.ur) and torch.equal(depth, got.depth)
+    ur_c, depth_c = stereo_ops.compute_stereo_matches(
+        *(a.cpu() for a in args), [p.cpu() for p in pl], [p.cpu() for p in pr],
+        cfg.scale_factors, cfg.bf, cfg.fx)
+    ur, lvl = ur.cpu(), kl.level.cpu()
+    on, on_c = ur >= 0, ur_c >= 0
+    assert int((on != on_c).sum()) <= 0.005 * ur.numel() and int((on & on_c).sum()) > 50
+    both = on & on_c
+    assert float((ur[both] - ur_c[both]).abs().max()) <= 1e-3
+    if integer:
+        lv0 = both & (lvl == 0)
+        assert int(lv0.sum()) > 20 and torch.equal(ur[lv0], ur_c[lv0])
+    monkeypatch.setattr(ce, "pyramid", ce.pyramid_plain)
+    monkeypatch.setattr(ce, "dense_stage_levels", ce.dense_stage_levels_plain)
+    monkeypatch.setattr(ce, "brief_levels", ce.brief_levels_plain)
+    want = frame_mod.make_frame_stereo(left, right, cfg)
+    for name, a, b in zip(got._fields, got, want):
+        assert torch.equal(a, b), name
+
+
+def test_init_search_window_kernel_bit_exact(cuda):
+    """SearchForInitialization through K4's window form (100 px window,
+    sources masked to octave 0, octaves (0, 0), no right coordinates): one
+    launch, its best / index / second equal to the twin's, and the search's
+    matches equal to its run on the CPU."""
+    from orb_slam2_tpu_torch.ops import matching
+    rng = np.random.default_rng(21)
+    n = 2048
+    xy1 = rng.uniform(0, 640, (n, 2)).astype(np.float32)
+    xy1[:, 1] *= 0.75
+    xy2 = (xy1 + rng.normal(0, 20, (n, 2))).astype(np.float32)
+    lvl1 = rng.integers(0, 8, n).astype(np.int32)
+    lvl2 = np.where(rng.random(n) < 0.8, lvl1, rng.integers(0, 8, n)).astype(np.int32)
+    d1 = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
+    d2 = d1.copy()
+    flips = rng.random((n, 8, 32)) < 0.05
+    d2 ^= (flips * (1 << np.arange(32, dtype=np.uint64))).sum(-1).astype(np.uint32)
+    perm = rng.permutation(n)
+    xy2, lvl2, d2 = xy2[perm], lvl2[perm], d2[perm]
+    ang1 = rng.uniform(0, 360, n).astype(np.float32)
+    ang2 = (ang1[perm] + rng.normal(0, 3, n)).astype(np.float32) % 360
+    v1, v2 = rng.random(n) < 0.9, rng.random(n) < 0.9
+    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (xy1, lvl1, d1.view(np.int32), v1, ang1, xy2, lvl2, d2.view(np.int32), v2, ang2)]
+    dev = [a.to(cuda) for a in host]
+    before = launch.LAUNCHES["best_two"]
+    got = matching.search_for_initialization(*dev)
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["best_two"] == before + 1
+    want = matching.search_for_initialization(*host)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert int(want.valid.sum()) > 100
+    src_ok = (dev[3] & (dev[1] == 0)).contiguous()
+    none = torch.full((n,), -1.0, device=cuda)
+    args = (dev[0], torch.full((n,), 100.0, device=cuda), dev[1], none, src_ok, dev[2],
+            dev[5], dev[6], none, dev[8], dev[7], (0, 0))
+    for a, b in zip(cm.window_best_two(*args), cm.window_best_two_plain(*args)):
+        assert torch.equal(a, b)
+
+
+def test_ba_edge_kernel_two_view(cuda):
+    """K9 at C = 2, the monocular two-view BA's shape: 2048 points, two
+    monocular observations each, camera 0 fixed; every field bit for bit."""
+    rng = np.random.default_rng(5)
+    q = 2048
+    T = se3.exp(torch.from_numpy(np.stack([np.zeros(6), [0.01, -0.02, 0.0, 0.1, 0.0, 0.0]])
+                                 .astype(np.float32)))
+    X = np.stack([rng.uniform(-3, 3, q), rng.uniform(-2, 2, q), rng.uniform(4, 15, q)], -1)
+    obs_cam = np.tile(np.array([[0, 1]], np.int32), (q, 1))
+    obs_cam[rng.random(q) < 0.1, 1] = -1
+    uvr = np.stack([rng.uniform(0, 640, (q, 2)), rng.uniform(0, 480, (q, 2)),
+                    np.full((q, 2), -1.0)], -1)
+    t = lambda a, dt=np.float32: torch.from_numpy(np.ascontiguousarray(a, dt)).to(cuda)
+    prob = schur_ba.BAProblem(
+        poses=T.to(cuda), cam_valid=torch.ones(2, dtype=torch.bool, device=cuda),
+        cam_fixed=torch.tensor([True, False], device=cuda), points=t(X),
+        pt_valid=t(rng.random(q) < 0.95, bool), obs_cam=t(obs_cam, np.int32), obs_uvr=t(uvr),
+        obs_level=t(np.zeros((q, 2)), np.int32))
+    edges = schur_ba._edges(prob, t(np.ones((q, 2))))
+    cam = camera_mod.Camera.make(517.3, 517.3, 320.0, 240.0, device=cuda)
+    for robust in (True, False):
+        args = (cam, prob.poses, prob.points, prob.pt_valid, edges,
+                t(obs_cam >= 0, np.float32), robust)
+        _lin_equal(cb.ba_assemble(*args), cb.ba_assemble_plain(*args))
+
+
+def test_initialize_on_the_card_against_the_cpu(cuda):
+    """The two-view initializer on the card (cuSOLVER's SVDs) against the
+    CPU (LAPACK's) with the same draws: the same success and model, R and t
+    within 1e-4, `good` equal on >= 99 % of the rows; a general scene (F)
+    and a planar one (H)."""
+    from orb_slam2_tpu_torch.solvers import initializer
+    rng = np.random.default_rng(0)
+    f, c = 500.0, (320.0, 240.0)
+    for planar in (False, True):
+        n = 200
+        X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n),
+                      np.full(n, 6.0) if planar else rng.uniform(4, 10, n)], -1)
+        R = se3.so3_exp(torch.tensor([0.02, -0.05, 0.01], dtype=torch.float64)).numpy()
+        tr = np.array([0.8, 0.05, 0.1])
+        p1 = f * X[:, :2] / X[:, 2:] + c
+        Xc = X @ R.T + tr
+        p2 = f * Xc[:, :2] / Xc[:, 2:] + c + rng.normal(0, 0.3, (n, 2))
+        valid = np.ones(256, bool)
+        valid[n:] = False
+        pad = lambda p: np.concatenate([p, np.zeros((256 - n, 2))]).astype(np.float32)
+        args = [torch.from_numpy(a) for a in (pad(p1), pad(p2), valid)]
+        res = [initializer.initialize(*(a.to(d) for a in args), f, f, *c,
+                                      generator=torch.Generator().manual_seed(7))
+               for d in (torch.device("cpu"), cuda)]
+        cpu, card = res
+        assert bool(cpu.success) and bool(card.success)
+        assert bool(cpu.used_homography) == bool(card.used_homography) == planar
+        assert torch.allclose(card.R21.cpu(), cpu.R21, atol=1e-4)
+        assert torch.allclose(card.t21.cpu(), cpu.t21, atol=1e-4)
+        assert float((card.good.cpu() == cpu.good).float().mean()) >= 0.99

@@ -49,27 +49,39 @@ def test_constant_tables_identical():
     np.testing.assert_array_equal(tbrief.brief_pattern(), jbrief.brief_pattern())
 
 
-@pytest.mark.parametrize("h,w,budget", [(134, 250, 60), (240, 320, 217), (240, 320, 4096)])
-def test_select_uniform_bit_exact(h, w, budget):
+@pytest.mark.parametrize("h,w,budget,per_cell", [
+    pytest.param(h, w, budget, per_cell, id=f"{h}-{w}-{budget}" + ("-top2" if per_cell == 2 else ""))
+    for per_cell in (1, 2) for h, w, budget in ((134, 250, 60), (240, 320, 217), (240, 320, 4096))])
+def test_select_uniform_bit_exact(h, w, budget, per_cell):
     """Same candidate map -> same (ys, xs, resp, valid), including the order
     among equal responses (integer images tie often) and a budget no grid
     depth reaches (4096 = the finest grid's cell count at 240x320). At
-    134x250 the ladder starts from two root cells, as the reference's nIni."""
+    134x250 the ladder starts from two root cells, as the reference's nIni.
+    per_cell=2 (`cfg.select_top2`) keeps each cell's runner-up too."""
     img = _image(h + budget, h, w)
     region = (E, w - E, E, h - E)
     _, cs = jfast.compute_candidates(jfast.fast_score_map(jnp.asarray(img)),
                                      20.0, 7.0, *region)
-    ref = jax.jit(jselect.select_uniform, static_argnums=range(1, 6))(
-        cs, budget, *region)
-    got = tselect.select_uniform(torch.from_numpy(np.array(cs)), budget, *region)
+    ref = jax.jit(jselect.select_uniform, static_argnums=range(1, 7))(
+        cs, budget, *region, per_cell)
+    got = tselect.select_uniform(torch.from_numpy(np.array(cs)), budget, *region,
+                                 per_cell=per_cell)
     for name, a, b in zip(("ys", "xs", "resp", "valid"), ref, got):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
     assert got[0].dtype == torch.int32
 
 
 def test_select_top2_not_ported():
-    with pytest.raises(NotImplementedError):
-        tselect.select_uniform(torch.zeros((64, 64)), 10, E, 48, E, 48, per_cell=2)
+    """per_cell=2 is ported: on a map with no candidate it selects nothing,
+    and on one candidate pair per cell it keeps both of a cell before the
+    next cell's winner."""
+    ys, xs, resp, valid = tselect.select_uniform(torch.full((64, 64), float("-inf")), 10,
+                                                 E, 48, E, 48, per_cell=2)
+    assert not bool(valid.any()) and ys.shape == (10,)
+    score = torch.full((64, 64), float("-inf"))
+    score[20, 20], score[20, 21], score[40, 40] = 9.0, 8.0, 7.0
+    _, xs, resp, valid = tselect.select_uniform(score, 3, E, 48, E, 48, per_cell=2)
+    assert resp.tolist() == [9.0, 8.0, 7.0] and bool(valid.all())
 
 
 def _angle_diff(a, b):

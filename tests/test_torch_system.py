@@ -223,10 +223,19 @@ def test_unported_options_raise(seq):
     tsystem.SlamSystem(dataclasses.replace(cfg, gba_every_n_kf=5), device="cpu")
     with pytest.raises(NotImplementedError, match="item 5"):
         tsystem.SlamSystem(cfg, gba_mesh=object(), device="cpu")
-    for call, item in ((lambda: s.track_monocular(seq["images"][0][0], 0.0), "item 4"),
-                       (lambda: s.track_stereo(seq["images"][0][0], seq["images"][0][0], 0.0),
-                        "item 4"),
-                       (lambda: s.draw_current_frame(seq["images"][0][0]), "item 6"),
+    # monocular and stereo tracking (item 4) are ported: both entry points
+    # construct and take a frame (tests/test_torch_mono.py and
+    # tests/test_torch_stereo.py hold them against the reference)
+    gray = seq["images"][0][0]
+    mono = tsystem.SlamSystem(dataclasses.replace(cfg, sensor=jconfig.SENSOR_MONOCULAR, bf=0.0),
+                              device="cpu")
+    assert mono.track_monocular(gray, 0.0) is None          # the initial frame, kept
+    assert mono.init_frame is not None and mono.frame_id == 1
+    stereo = tsystem.SlamSystem(dataclasses.replace(cfg, sensor=jconfig.SENSOR_STEREO),
+                                device="cpu")
+    stereo.track_stereo(gray, gray, 0.0)
+    assert stereo.frame_id == 1 and stereo.last_frame is not None
+    for call, item in ((lambda: s.draw_current_frame(gray), "item 6"),
                        (lambda: tsystem.SlamSystem(cfg, enable_loop_closing=False,
                                                    mapping_device="cpu", device="cpu"), "item 5")):
         with pytest.raises(NotImplementedError, match=item):
