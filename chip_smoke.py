@@ -104,7 +104,22 @@ Phases (each prints its result; any failure exits non-zero):
                K4 at its gate and K9 at C = 2 bit for bit, R and t within
                1e-4); a depth-3 stream. Timed: track_monocular, the
                initialization's search, RANSAC and CheckRT, the two-view
-               BA, K4 at the init gate and K9 at C = 2 beside their bounds.
+               BA, K4 at the init gate and K9 at C = 2 beside their bounds;
+10. multi    — after [loop], on its renders and its final map: the
+               tracking / mapping split (SlamSystem(pipeline_depth=3,
+               mapping_device=the card): each keyframe's mapping pass on a
+               second CUDA stream, issued by a worker thread, adopted at the
+               next retire) against the stream without it, both with loop
+               closing on (frames tracked, ATE, keyframes, every pass
+               adopted, the map on the card); the sharded solvers at one
+               NCCL rank against the unsharded ones bit for bit on the
+               final map's global BA problem and the closure's essential
+               graph; two ranks spawned on the one card over gloo, each
+               K9 on its half of the points, against one rank: within
+               1e-4 after one LM iteration, within [loop]'s PCG bounds
+               after ten. Timed: both laps' frames per second and ms per call
+               (plain, keyframe, adoption), the solves, the all-reduces, K9
+               at the shard's shape beside its bound.
 The second-to-last line is the kernels' JSON record (K4's two forms apart:
 best_two the window form, best_two_node the node form); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -117,6 +132,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from collections import Counter, deque
@@ -142,9 +158,10 @@ from orb_slam2_tpu_torch.ops import cuda_pose as cp
 from orb_slam2_tpu_torch.ops import extractor as ex
 from orb_slam2_tpu_torch.ops import matching, orient_brief, select
 from orb_slam2_tpu_torch.ops import stereo as stereo_ops
+from orb_slam2_tpu_torch.parallel import distributed, sharded_ba, sharded_pose_graph
 from orb_slam2_tpu_torch.pipeline import loop_closing, mapping_ops, system, tracking_step
 from orb_slam2_tpu_torch.pipeline.frame import make_frame_rgbd, make_frame_stereo
-from orb_slam2_tpu_torch.solvers import initializer, pcg_ba, schur_ba
+from orb_slam2_tpu_torch.solvers import initializer, pcg_ba, pose_graph, schur_ba
 from orb_slam2_tpu_torch.utils import trajectory
 from orb_slam2_tpu_torch.utils.config import (SlamConfig, SENSOR_MONOCULAR, SENSOR_RGBD,
                                               SENSOR_STEREO)
@@ -1878,8 +1895,8 @@ def loop_instruments(cfg, stages, rec, k9_gba):
     """Time each loop-closing stage (synchronized wall ms, in `stages` as
     (name, closures so far, ms)), record the first inputs the loop path
     hands K4 (window form with open octaves, its loop-projection count, the
-    node form on all pairs), K5 (the loop fusion) and K9 at C = capacity_kf
-    into `rec`, and count K9's launches inside run_global_ba (the launch
+    node form on all pairs), K5 (the loop fusion) and K9 at C = capacity_kf,
+    and the first essential-graph problem, into `rec`, and count K9's launches inside run_global_ba (the launch
     counter's growth over each call) in `k9_gba`. The stages inside
     compute_sim3 / correct_loop / run_global_ba mark where a kernel call
     comes from; a kernel's arguments are read by name."""
@@ -1939,13 +1956,22 @@ def loop_instruments(cfg, stages, rec, k9_gba):
             keep("ba_gba", args)
         return k_saved["k9"](*args)
 
+    essential = loop_closing.essential_problem
+
+    def essential_recorded(*args, **kw):
+        prob = essential(*args, **kw)
+        keep("essential", prob)
+        return prob
+
     for name, fn in LOOP_STAGES:
         setattr(loop_closing, fn, timed(name, saved[name]))
     for k, f in (("window", window), ("node", node), ("proj", proj), ("k9", k9)):
         setattr(kernels[k][0], kernels[k][1], f)
+    loop_closing.essential_problem = essential_recorded
     try:
         yield
     finally:
+        loop_closing.essential_problem = essential
         for name, fn in LOOP_STAGES:
             setattr(loop_closing, fn, saved[name])
         for k, (mod, name) in kernels.items():
@@ -2242,7 +2268,8 @@ def loop_phase(cfg, voc, dev, card, errs, clean):
     map bit for bit), the per-frame host syncs against a lap with loop
     closing off, and PCG against the dense Schur solve on the final map's
     global BA problem. Returns (launches, K9's GBA-shape timing, the
-    phase's results)."""
+    phase's results, what [multi] reuses: the poses, frames, the first
+    lap's final map and ATE, the closure's essential problem)."""
     poses, frames = render_loop_frames(clean=clean)
     stages, rec, k9_gba, times, syncs, closure_nb = [], {}, [0], [], [], []
     launch.reset_launches()
@@ -2383,13 +2410,282 @@ def loop_phase(cfg, voc, dev, card, errs, clean):
               "device_ms": _queued_ms(lambda: cb.ba_assemble(*k9)),
               "ms": _event_ms(lambda: cb.ba_assemble(*k9), 20),
               "plain_ms": _event_ms(lambda: cb.ba_assemble_plain(*k9), 5),
+              "plain_device_ms": _device_ms(lambda: cb.ba_assemble_plain(*k9), reps=3)[0],
               "bound_ms": gba_bound, "bound_by": gba_by, "launches": k9_gba[0]}
     log(f"[loop] {card}: K9 at the global BA's shape ({k9_res['shape']}): device "
         f"{k9_res['device_ms'] * 1e3:.1f} us queued, {k9_res['ms']:.3f} ms per call, twin "
-        f"{k9_res['plain_ms']:.3f} ms, bound {gba_bound * 1e3:.2f} us ({gba_by}), "
+        f"{k9_res['plain_ms']:.3f} ms ({k9_res['plain_device_ms'] * 1e3:.1f} us device, "
+        f"profiler), bound {gba_bound * 1e3:.2f} us ({gba_by}), "
         f"{k9_gba[0]} launches in the lap")
     res["pcg"] = _pcg_against_dense(cfg, s.m, dev, card)
-    return launches, k9_res, res
+    return launches, k9_res, res, dict(poses=poses, frames=frames, m=s.m, ate=ate,
+                                       essential=rec["essential"])
+
+
+# ---------------------------------------------------------------------------
+# [multi]: the tracking / mapping split and the sharded solvers
+# ---------------------------------------------------------------------------
+
+MULTI_KF_SLACK = 0.2        # the split's keyframes against the stream's, a share
+SHARD_TOL = 1e-4            # two ranks against one after one LM step (tests/test_parallel.py:36-39)
+RANKS_TIMEOUT_S = 300       # the two spawned ranks, start to end
+
+
+def _multi_lap(cfg, voc, frames, dev, mapping_device=None):
+    """A fresh system with its defaults streaming the frames at depth
+    STREAM_DEPTH (with `mapping_device`, the split), then flush(). Returns
+    the system, the wall ms of each call and its kind: "dispatch" where the
+    call inserted a keyframe (the split: dispatched its pass), "adopt"
+    where the split adopted a pass, else "plain"; and the lap's seconds."""
+    s = system.SlamSystem(cfg, vocabulary=voc, pipeline_depth=STREAM_DEPTH,
+                          mapping_device=mapping_device, device=dev)
+    times, kinds = [], []
+    t_lap = time.perf_counter()
+    for i, (gray, depth_img) in enumerate(frames):
+        seq, adopted = s._kf_seq_host, s.n_mapping_adopted
+        t0 = time.perf_counter()
+        s.track_rgbd(gray, depth_img, i / cfg.fps)
+        times.append((time.perf_counter() - t0) * 1e3)
+        kinds.append("adopt" if s.n_mapping_adopted > adopted else
+                     "dispatch" if s._kf_seq_host > seq else "plain")
+    s.flush()
+    torch.cuda.synchronize()
+    return s, times, kinds, time.perf_counter() - t_lap
+
+
+def _kind_ms(times, kinds, kind):
+    return _median([t for i, (t, k) in enumerate(zip(times, kinds)) if i and k == kind])
+
+
+def _gloo_rank(rank, tmp, device):
+    """One of two ranks on `device` over gloo: the sharded global BA of
+    the problem [multi] saved in tmp after one LM iteration and after
+    PCG_LM_ITERS (timed on a second run), and the wall ms of the LM
+    iteration's all-reduce at its shape through gloo."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.set_num_threads(1)
+    d = torch.load(os.path.join(tmp, "problem.pt"), weights_only=False)
+    cfg = d["cfg"]
+    prob = schur_ba.BAProblem(*(t.to(dev) for t in d["prob"]))
+    mesh = distributed.init_distributed(init_method=f"file://{tmp}/init", world_size=2,
+                                        rank=rank, device="cpu")
+    try:
+        def solve(n_iters):
+            return sharded_ba.solve_global_ba_sharded(cfg.camera(dev), prob, cfg.level_sigma2,
+                                                      mesh, n_iters=n_iters)
+        first = solve(1)
+        solve(PCG_LM_ITERS)
+        ms = _wall_ms(lambda _: solve(PCG_LM_ITERS), [None])[0]
+        res = solve(PCG_LM_ITERS)
+        C = prob.poses.shape[0]
+        pack = torch.ones((36 * C * C + 6 * C,), device=dev)
+        ar_ms = _wall_ms(lambda _: distributed.all_reduce_sum(mesh.get_group(), pack),
+                         [None] * 10)
+        if rank == 0:
+            torch.save({"res": {1: [t.cpu() for t in first],
+                                PCG_LM_ITERS: [t.cpu() for t in res]}, "solve_ms": ms,
+                        "all_reduce_ms": statistics.median(ar_ms)},
+                       os.path.join(tmp, "out.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _two_ranks(cfg, prob, dev):
+    """The sharded global BA over two processes on the one card (gloo):
+    their result and timings. The problem goes by torch.save to a
+    temporary directory; the ranks are stopped if they outlast
+    RANKS_TIMEOUT_S."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"cfg": cfg, "prob": [t.cpu() for t in prob]},
+                   os.path.join(tmp, "problem.pt"))
+        ctx = mp.start_processes(_gloo_rank, args=(tmp, str(dev)), nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.perf_counter() + RANKS_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"[multi] the two gloo ranks ran past "
+                                         f"{RANKS_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        return torch.load(os.path.join(tmp, "out.pt"), weights_only=False)
+
+
+def _require_same(what, got, want):
+    """Every tensor of two results equal bit for bit; returns the largest
+    difference of their floats (0.0)."""
+    diff = 0.0
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            d = float((a.double() - b.double()).abs().max()) if a.is_floating_point() else -1
+            raise AssertionError(f"[multi] {what} parts from the unsharded solve (max |diff| "
+                                 f"{d})")
+        if a.is_floating_point():
+            diff = max(diff, float((a - b).abs().max()))
+    return diff
+
+
+def _sharded_solvers(cfg, m, essential, dev, card, errs):
+    """The sharded solvers on the final map of [loop]: at one NCCL rank
+    against the unsharded solves bit for bit (the global BA, dense and
+    PCG, and the closure's essential graph), the LM iteration's all-reduce
+    timed; K9 at the shape of one of two landmark blocks beside its bound;
+    two gloo ranks on the card against one rank: within SHARD_TOL after one
+    LM iteration, and after PCG_LM_ITERS within the bounds [loop] holds two
+    float32 solves of this problem to (PCG_POSE_TOL, PCG_POINT_TOL: the
+    ten iterations at low damping magnify the rounding of another
+    summation order, as between PCG and the dense solve)."""
+    cam = cfg.camera(dev)
+    prob = loop_closing.global_ba_problem(cfg, m)
+    fix_scale = cfg.sensor != SENSOR_MONOCULAR
+    mesh = distributed.init_distributed()
+    res = {"backend": torch.distributed.get_backend(), "ranks": mesh.size()}
+    try:
+        solves = {
+            "gba": (lambda: sharded_ba.solve_global_ba_sharded(cam, prob, cfg.level_sigma2, mesh,
+                                                               n_iters=PCG_LM_ITERS),
+                    lambda: schur_ba.solve_ba(cam, prob, cfg.level_sigma2, iters_a=PCG_LM_ITERS,
+                                              iters_b=0, robust=False)),
+            "pcg": (lambda: pcg_ba.solve_ba_pcg_sharded(cam, prob, cfg.level_sigma2, mesh,
+                                                        n_iters=PCG_LM_ITERS),
+                    lambda: pcg_ba.solve_ba_pcg(cam, prob, cfg.level_sigma2,
+                                                n_iters=PCG_LM_ITERS)),
+            "essential_graph": (
+                lambda: sharded_pose_graph.optimize_pose_graph_sharded(essential, mesh, 20,
+                                                                       fix_scale),
+                lambda: pose_graph.optimize_pose_graph(essential, 20, fix_scale))}
+        out = {}
+        for name, (sharded, plain) in solves.items():
+            got, want = sharded(), plain()
+            torch.cuda.synchronize()
+            res[f"{name}_max_abs_diff"] = _require_same(name, got, want)
+            res[f"{name}_sharded_ms"] = statistics.median(_wall_ms(lambda _: sharded(), [None], 3))
+            res[f"{name}_ms"] = statistics.median(_wall_ms(lambda _: plain(), [None], 3))
+            out[name] = got
+        C = prob.poses.shape[0]
+        pack = (torch.ones((6 * C, 6 * C), device=dev), torch.ones((6 * C,), device=dev))
+        res["all_reduce_nccl_ms"] = _event_ms(
+            lambda: distributed.all_reduce_sum(mesh.get_group(), *pack), 20)
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"[multi] {card}: the sharded solvers at one NCCL rank equal the unsharded ones bit for "
+        f"bit on [loop]'s final map (C={prob.poses.shape[0]}, {int(prob.pt_valid.sum())} points, "
+        f"{PCG_LM_ITERS} LM iterations; the closure's essential graph, "
+        f"E={essential.edge_i.shape[0]}, 20 iterations): global BA "
+        f"{res['gba_sharded_ms']:.1f} ms sharded / {res['gba_ms']:.1f} ms, PCG "
+        f"{res['pcg_sharded_ms']:.1f} / {res['pcg_ms']:.1f} ms, essential graph "
+        f"{res['essential_graph_sharded_ms']:.1f} / {res['essential_graph_ms']:.1f} ms; the "
+        f"all-reduce of (S, b_red), {36 * C * C + 6 * C} floats, {res['all_reduce_nccl_ms']:.3f} "
+        f"ms")
+
+    # K9 on one of two landmark blocks: its shape in the two-rank solve
+    Q = prob.points.shape[0]
+    half = schur_ba.BAProblem(prob.poses, prob.cam_valid, prob.cam_fixed,
+                              *(t[: Q // 2] for t in prob[3:]))
+    inv_sigma2, base_mask, _ = schur_ba._weights(half, cfg.level_sigma2)
+    k9 = (cam, half.poses, half.points, half.pt_valid, schur_ba._edges(half, inv_sigma2),
+          base_mask.float(), False)
+    _lin_equal(f"[multi] K9 at the shard's shape", schur_ba.Lin(*cb.ba_assemble(*k9)),
+               schur_ba.Lin(*cb.ba_assemble_plain(*k9)), errs)
+    e9 = k9[5].numel()
+    bound, by = _bound(_ba_assemble_bytes(k9), 600 * e9)
+    shard = {"shape": f"E={e9} ({Q // 2} points x {k9[5].shape[1]}), C={C}, robust off",
+             "device_ms": _queued_ms(lambda: cb.ba_assemble(*k9)),
+             "ms": _event_ms(lambda: cb.ba_assemble(*k9), 20),
+             "plain_ms": _event_ms(lambda: cb.ba_assemble_plain(*k9), 5),
+             "plain_device_ms": _device_ms(lambda: cb.ba_assemble_plain(*k9), reps=3)[0],
+             "bound_ms": bound, "bound_by": by}
+    log(f"[multi] {card}: K9 at the shard's shape ({shard['shape']}): device "
+        f"{shard['device_ms'] * 1e3:.1f} us queued, {shard['ms']:.3f} ms per call, twin "
+        f"{shard['plain_ms']:.3f} ms ({shard['plain_device_ms'] * 1e3:.1f} us device, "
+        f"profiler), bound {bound * 1e3:.2f} us ({by}); equal to its twin "
+        f"bit for bit")
+
+    two = _two_ranks(cfg, prob, dev)
+    pv = prob.pt_valid.cpu()
+    ones = {1: schur_ba.solve_ba(cam, prob, cfg.level_sigma2, iters_a=1, iters_b=0,
+                                 robust=False), PCG_LM_ITERS: out["gba"]}
+    for n, one in ones.items():
+        got = two["res"][n]
+        res[f"two_rank_{n}_iters"] = {
+            "pose_diff": float((got[0] - one.poses.cpu()).abs().max()),
+            "point_diff": float((got[1] - one.points.cpu())[pv].abs().max()),
+            "point_diff_median_m": float((got[1] - one.points.cpu())[pv].norm(dim=-1).median())}
+    d1, d10 = res["two_rank_1_iters"], res[f"two_rank_{PCG_LM_ITERS}_iters"]
+    res.update({"two_rank_gba_ms": two["solve_ms"], "all_reduce_gloo_ms": two["all_reduce_ms"],
+                "k9_shard": shard})
+    log(f"[multi] {card}: two ranks on the card over gloo (K9 on {Q // 2} points each): the "
+        f"global BA {two['solve_ms']:.1f} ms; against one rank after one LM iteration, poses "
+        f"max |diff| {d1['pose_diff']:.3e}, points {d1['point_diff']:.3e} (<= {SHARD_TOL} "
+        f"required); after {PCG_LM_ITERS}, poses {d10['pose_diff']:.3e} (<= {PCG_POSE_TOL}), "
+        f"points max {d10['point_diff']:.3e}, median {d10['point_diff_median_m']:.3e} m (< "
+        f"{PCG_POINT_TOL}); gloo's all-reduce of (S, b_red) {two['all_reduce_ms']:.2f} ms")
+    if not (d1["pose_diff"] <= SHARD_TOL and d1["point_diff"] <= SHARD_TOL and
+            d10["pose_diff"] <= PCG_POSE_TOL and d10["point_diff_median_m"] < PCG_POINT_TOL):
+        raise AssertionError(f"[multi] two ranks part from one: {d1}, {d10}")
+    return res
+
+
+def multi_phase(cfg, voc, dev, card, errs, lap):
+    """[loop]'s figure eight through the tracking / mapping split at depth
+    STREAM_DEPTH (counts set to 0 before, read after) and through the
+    stream without it, then the sharded solvers (`_sharded_solvers`) on
+    [loop]'s final map. The split against the stream, as
+    tests/test_pipeline_split.py holds the reference's: at least
+    LOOP_TRACKED_FLOOR of the frames tracked, the ATE within max(3x the
+    stream's, 3 cm) (a stream lap has no reference of its own, ROADMAP
+    Queue 3: its ATE moves with whether a loop closes), the keyframes
+    within MULTI_KF_SLACK of the stream's, every pass adopted, a finite map
+    on the card. Returns (launches, the phase's results)."""
+    poses, frames = lap["poses"], lap["frames"]
+    gt = [(i / cfg.fps, T) for i, T in enumerate(poses)]
+    plain, p_times, p_kinds, p_s = _multi_lap(cfg, voc, frames, dev)
+    launch.reset_launches()
+    split, s_times, s_kinds, s_s = _multi_lap(cfg, voc, frames, dev, mapping_device=dev)
+    launches = dict(launch.LAUNCHES)
+    res = {}
+    for name, s, times, kinds, lap_s in (("stream", plain, p_times, p_kinds, p_s),
+                                         ("split", split, s_times, s_kinds, s_s)):
+        traj = s.get_trajectory()
+        res[name] = {"fps": len(frames) / lap_s, "tracked": len(traj),
+                     "ate_m": trajectory.ate_rmse(traj, gt), "keyframes": s._kf_seq_host,
+                     "loops": s.n_loops_closed, "plain_ms": _kind_ms(times, kinds, "plain"),
+                     "keyframe_ms": _kind_ms(times, kinds, "dispatch"),
+                     "adopt_ms": _kind_ms(times, kinds, "adopt"),
+                     "calls": dict(Counter(kinds))}
+    r, q = res["split"], res["stream"]
+    r.update({"dispatched": split.n_mapping_dispatched, "adopted": split.n_mapping_adopted,
+              "mapping_adopt_wall_ms": split.stage_ms.get("mapping_adopt_wall")})
+    log(f"[multi] {card}: the split (depth {STREAM_DEPTH}, the mapping pass on a second stream) "
+        f"against the stream without it, loop closing on, {len(frames)} frames: "
+        f"{r['fps']:.2f} / {q['fps']:.2f} frames per second; ms per call without a keyframe "
+        f"{_fmt(r['plain_ms'])} / {_fmt(q['plain_ms'])}, inserting one {_fmt(r['keyframe_ms'])} "
+        f"/ {_fmt(q['keyframe_ms'])}, adopting a pass {_fmt(r['adopt_ms'])}; tracked "
+        f"{r['tracked']} / {q['tracked']}, ATE {r['ate_m'] * 100:.3f} / {q['ate_m'] * 100:.3f} "
+        f"cm ([loop]'s synchronous lap {lap['ate'] * 100:.3f} cm), keyframes {r['keyframes']} / "
+        f"{q['keyframes']}, loops {r['loops']} / {q['loops']}; {r['dispatched']} passes "
+        f"dispatched, {r['adopted']} adopted; launches over the split lap {launches}")
+    bad = _map_finite(split.m)
+    fails = [what for what, ok in (
+        ("tracked", r["tracked"] >= LOOP_TRACKED_FLOOR * len(frames)),
+        ("ATE", r["ate_m"] <= max(3 * q["ate_m"], 0.03)),
+        ("keyframes", abs(r["keyframes"] - q["keyframes"]) <= MULTI_KF_SLACK * q["keyframes"]),
+        ("passes adopted", 0 < r["adopted"] == r["dispatched"]),
+        ("mapping_adopt_wall", r["mapping_adopt_wall_ms"] is not None),
+        ("map on the card", split.m.kf_pose.device == dev and split.m.pt_pos.device == dev),
+        ("finite map", bad is None)) if not ok]
+    missing = [k for k in PATH_KERNELS if not launches[k]]
+    if fails or missing:
+        raise AssertionError(f"[multi] the split fails {fails}; kernels never launched "
+                             f"{missing}: {res}")
+    del plain, split
+    res["solvers"] = _sharded_solvers(cfg, lap["m"], lap["essential"], dev, card, errs)
+    return launches, res
 
 
 # ---------------------------------------------------------------------------
@@ -2847,7 +3143,9 @@ def main():
     clean = render_loop_clean()
     log(f"[loop] rendered the figure eight: {len(clean[2])} frames {W}x{H} in "
         f"{time.perf_counter() - t0:.1f} s")
-    loop_launches, k9_gba, loop_res = loop_phase(cfg, voc, dev, card, errs, clean)
+    loop_launches, k9_gba, loop_res, lap = loop_phase(cfg, voc, dev, card, errs, clean)
+    multi_launches, multi_res = multi_phase(cfg, voc, dev, card, errs, lap)
+    del lap
     if not launches["best_two_node"]:
         # no frame of the forced run fell back to the reference keyframe:
         # the node form's launches are the [system] phase's (relocalization)
@@ -2862,7 +3160,8 @@ def main():
     mono_launches, mono_res = mono_phase(voc, dev, card, errs, clean)
     del clean
     log(f"[result] {card}: " + json.dumps({"system": system_res, "loop": loop_res,
-                                           "stereo": stereo_res, "mono": mono_res}))
+                                           "multi": multi_res, "stereo": stereo_res,
+                                           "mono": mono_res}))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -2870,8 +3169,8 @@ def main():
     # run's (k7_path), and `main_path_launches` says what the main path gave;
     # `system_launches` are the [system] phase's, `loop_launches` the [loop]
     # phase's (K9's `gba`: its launches and timing at the global BA's shape),
-    # `stereo_launches` and `mono_launches` those of the [stereo] and [mono]
-    # laps; the timings at their new inputs beside them (K1-K3 on a stereo
+    # `multi_launches` the [multi] phase's split lap's, `stereo_launches` and
+    # `mono_launches` those of the [stereo] and [mono] laps; the timings at their new inputs beside them (K1-K3 on a stereo
     # pair's right image, K4 at the initialization search, K9 at C = 2)
     froms = {"pose_normal_eqs": "a run of its own: no call chain of the main path reaches it",
              "best_two_node": "the [system] phase: relocalization's BoW search (no frame of "
@@ -2882,11 +3181,12 @@ def main():
                  "launches": side_launches.get(name, launches[name]),
                  "main_path_launches": launches[name],
                  "system_launches": system_launches[name],
-                 "loop_launches": loop_launches[name],
+                 "loop_launches": loop_launches[name], "multi_launches": multi_launches[name],
                  "stereo_launches": stereo_launches[name], "mono_launches": mono_launches[name],
                  "max_abs_err": errs[name], **per_call[name]}
         if name == "ba_edge":
             entry["gba"] = k9_gba
+            entry["shard"] = multi_res["solvers"]["k9_shard"]
             entry["two_view"] = mono_res["ba_edge_two_view"]
         if name == "best_two":
             entry["init_search"] = mono_res["best_two_init"]

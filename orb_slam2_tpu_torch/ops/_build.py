@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -138,9 +139,18 @@ def build():
     return lib, seconds, "".join(report)
 
 
-@functools.lru_cache(maxsize=None)
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use (once, whichever host
+    thread launches first)."""
+    with _LIBRARY_LOCK:
+        return _library()
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(path)
     for name, argtypes in SIGNATURES.items():

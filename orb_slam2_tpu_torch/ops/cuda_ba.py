@@ -17,12 +17,11 @@ bit.
 """
 from __future__ import annotations
 
-import functools
 
 import torch
 
 from ..solvers import reproj
-from ..utils.config import device_table
+from ..utils.config import device_cache, device_table
 from .launch import check, counters as launch_counters, launch, on_cpu, ptr
 
 BA_ROWS = 64
@@ -40,7 +39,7 @@ TRI6 = [(i, j) for i in range(6) for j in range(i, 6)]
 TRI3 = [(i, j) for i in range(3) for j in range(i, 3)]
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache()
 def symmetric_index(n: int, device):
     """(n, n) int64 index of the symmetric matrix into its row-major upper
     triangle's n(n+1)/2 entries."""

@@ -20,15 +20,15 @@ tensors on the edges' device.
 """
 from __future__ import annotations
 
-import functools
 
 import torch
 
 from ..solvers import reproj
+from ..utils.config import device_cache
 from .launch import check, launch, on_cpu, ptr
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache()
 def triangle(device):
     """The row-major upper triangle of a 6x6 on `device`: its 21 row and
     column indices, and the (6,6) gather index of the symmetric matrix from

@@ -12,14 +12,13 @@ dense stage (`cuda_extract.dense_stage_levels`) and steered BRIEF
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..utils.config import SlamConfig
+from ..utils.config import SlamConfig, device_cache
 from . import cuda_extract
 from . import image as image_ops
 from . import orient_brief
@@ -195,7 +194,7 @@ class ORBExtractor(nn.Module):
         return Keypoints(xy=xy, level=lvl, angle=ang, response=resp, desc=desc, valid=valid), pyr
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache()
 def extractor_for(cfg: SlamConfig, height: int, width: int, device) -> ORBExtractor:
     """The `ORBExtractor` of (cfg, image size) on `device`, built once."""
     return ORBExtractor(cfg, height, width).to(device)

@@ -7,23 +7,27 @@ plain-PyTorch twin for a CPU tensor and launches its CUDA kernel for a CUDA
 tensor, or raises: there is no switch and no fallback. `LAUNCHES` counts
 kernel launches by kernel name (K4's two forms apart: `best_two` the window
 form, `best_two_node` the node form), one per launch and nowhere else, so a
-run can show that it went through the kernels.
+run can show that it went through the kernels. The count is kept under a
+lock: the tracking / mapping split launches from two host threads.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
 LAUNCHES = {"pyramid": 0, "dense_stage": 0, "brief": 0, "best_two": 0,
             "best_two_node": 0, "proj_match": 0, "pose_lm": 0, "pose_normal_eqs": 0, "epi_match": 0,
             "ba_edge": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def on_cpu(t: torch.Tensor) -> bool:
@@ -57,7 +61,13 @@ def launch(kernel: str, fn_name: str, device, *args):
         err = fn(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
-    LAUNCHES[kernel] += 1
+    count(kernel)
+
+
+def count(kernel: str):
+    """One launch of `kernel` (from any host thread)."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def ptr(t: torch.Tensor):

@@ -17,19 +17,18 @@ offset). Everything stays on the device: no value is read back.
 """
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
 
-from ..utils.config import device_table, reciprocal_f32
+from ..utils.config import device_cache, device_table, reciprocal_f32
 from .matching import BIG, TH_HIGH, TH_LOW, hamming_matrix
 
 SAD_W = 5   # window radius -> 11x11 patch
 SAD_L = 5   # slide range +-5
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache()
 def _level_geometry(sizes: tuple, device):
     """(n_levels, 3) int64 on `device`: each level's height, width and
     offset in the flat buffer of all levels, made once per device."""

@@ -8,14 +8,13 @@ uint8 (gray) and uint16 (depth) tensors and are cast on their device.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import NamedTuple
 
 import torch
 
 from ..geometry import camera as camera_mod
 from ..ops import extractor, stereo as stereo_ops
-from ..utils.config import SlamConfig, SENSOR_STEREO, SENSOR_RGBD
+from ..utils.config import SlamConfig, SENSOR_STEREO, SENSOR_RGBD, device_cache
 
 
 class FrameData(NamedTuple):
@@ -34,7 +33,7 @@ class FrameData(NamedTuple):
         return self.valid.to(torch.int32).sum()
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache()
 def _camera(cfg: SlamConfig, device) -> camera_mod.Camera:
     return cfg.camera(device)
 

@@ -1,5 +1,5 @@
 """Loop detection and correction (port of
-`orb_slam2_tpu/pipeline/loop_closing.py`, without its device-mesh branches).
+`orb_slam2_tpu/pipeline/loop_closing.py`).
 
 `LoopClosing` (`src/LoopClosing.cc`), the reference's third thread, as
 functions the system calls after each keyframe insertion:
@@ -19,7 +19,9 @@ functions the system calls after each keyframe insertion:
 
 Every step runs on the map's device. compute_sim3 reads a few counts back
 to the host (the reference's gates), and the essential graph's edge list
-is built on the host in NumPy, as the reference builds it.
+is built on the host in NumPy, as the reference builds it. Given a device
+mesh (`parallel/distributed.py`), the essential graph and the global BA
+are solved sharded over it (`parallel/`).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from ..geometry import se3, sim3
 from ..geometry.sim3 import Sim3
 from ..mapstate import map as mapstate
 from ..ops import matching
+from ..parallel import sharded_ba, sharded_pose_graph
 from ..solvers import pcg_ba, pose_graph, schur_ba, sim3_solver
 from ..utils.config import SlamConfig, SENSOR_MONOCULAR
 from . import mapping_ops
@@ -358,10 +361,11 @@ def _propagate_and_fuse(cfg: SlamConfig, m: mapstate.MapState, kf_id: int, cand_
 
 
 def correct_loop(cfg: SlamConfig, m: mapstate.MapState, kf_id: int, cand_id: int, Scm: Sim3,
-                 run_gba: bool = True):
+                 mesh=None, run_gba: bool = True):
     """The whole loop correction; returns the map. run_gba=False leaves the
     global BA to the caller (the system spreads it over later keyframes
-    when cfg.gba_async_chunks > 0)."""
+    when cfg.gba_async_chunks > 0). mesh: solve the essential graph and the
+    global BA sharded over it."""
     pose_before = m.kf_pose            # the essential graph's old measurements
     m, group = _propagate_and_fuse(cfg, m, kf_id, cand_id, Scm)
     m = fuse_loop_points(cfg, m, cand_id, group)
@@ -369,9 +373,9 @@ def correct_loop(cfg: SlamConfig, m: mapstate.MapState, kf_id: int, cand_id: int
     # every later essential graph carries it and both ends are never
     # culled), then the essential graph over all keyframes
     m = mapstate.add_loop_edge(m, kf_id, cand_id)
-    m = _essential_graph(cfg, m, pose_before, kf_id, cand_id, group)
+    m = _essential_graph(cfg, m, pose_before, kf_id, cand_id, group, mesh=mesh)
     if run_gba:
-        m = run_global_ba(cfg, m, n_iters=cfg.gba_total_iters)
+        m = run_global_ba(cfg, m, mesh=mesh, n_iters=cfg.gba_total_iters)
     return m
 
 
@@ -424,9 +428,9 @@ def build_essential_edges(cfg: SlamConfig, m: mapstate.MapState, kf_id: int, can
 
 
 def essential_problem(cfg: SlamConfig, m: mapstate.MapState, pose_before, kf_id: int,
-                      cand_id: int, group) -> pose_graph.PoseGraphProblem:
+                      cand_id: int, group, mesh=None) -> pose_graph.PoseGraphProblem:
     """The essential graph as a pose-graph problem (edges padded to a power
-    of two, at least 16). Each edge's measurement Sji is computed from the
+    of two, at least 16, then to a multiple of the mesh's size). Each edge's measurement Sji is computed from the
     poses after the correction where the edge is the loop edge or joins two
     keyframes of the corrected group (the reference's vScw,
     src/Optimizer.cc:1139-1160: it carries the closing information), and
@@ -436,6 +440,8 @@ def essential_problem(cfg: SlamConfig, m: mapstate.MapState, pose_before, kf_id:
     dev = m.covis.device
     uniq = build_essential_edges(cfg, m, kf_id, cand_id)
     E = max(16, 1 << int(np.ceil(np.log2(len(uniq) + 1))))
+    if mesh is not None:
+        E = -(-E // mesh.size()) * mesh.size()
     group_np = group.cpu().numpy()
     pose_b, pose_a = pose_before.cpu().numpy(), m.kf_pose.cpu().numpy()
     ei, ej = np.zeros(E, np.int32), np.zeros(E, np.int32)
@@ -462,14 +468,19 @@ def essential_problem(cfg: SlamConfig, m: mapstate.MapState, pose_before, kf_id:
 
 
 def _essential_graph(cfg: SlamConfig, m: mapstate.MapState, pose_before, kf_id: int,
-                     cand_id: int, group):
+                     cand_id: int, group, mesh=None):
     """Build and solve the Sim3 pose graph (`OptimizeEssentialGraph`,
-    `src/Optimizer.cc:1069-1404`), then write the poses back (t / s) and
-    re-express each point through its reference keyframe."""
+    `src/Optimizer.cc:1069-1404`), its edges sharded over `mesh` if one is
+    given, then write the poses back (t / s) and re-express each point
+    through its reference keyframe."""
     K = m.capacity_kf
-    prob = essential_problem(cfg, m, pose_before, kf_id, cand_id, group)
-    out = pose_graph.optimize_pose_graph(prob, n_iters=20,
-                                         fix_scale=cfg.sensor != SENSOR_MONOCULAR)
+    prob = essential_problem(cfg, m, pose_before, kf_id, cand_id, group, mesh=mesh)
+    fix_scale = cfg.sensor != SENSOR_MONOCULAR
+    if mesh is not None:
+        out = sharded_pose_graph.optimize_pose_graph_sharded(prob, mesh, n_iters=20,
+                                                             fix_scale=fix_scale)
+    else:
+        out = pose_graph.optimize_pose_graph(prob, n_iters=20, fix_scale=fix_scale)
     ref = torch.clamp(m.pt_ref_kf, 0, K - 1).long()
     p_cam = sim3.apply(Sim3.from_se3(m.kf_pose).take(ref), m.pt_pos)
     p_new = sim3.apply(sim3.inverse(out.take(ref)), p_cam)
@@ -496,15 +507,22 @@ def global_ba_problem(cfg: SlamConfig, m: mapstate.MapState) -> schur_ba.BAProbl
         obs_level=m.kf_level[kfc, ftc])
 
 
-def run_global_ba(cfg: SlamConfig, m: mapstate.MapState, n_iters: int = 10):
+def run_global_ba(cfg: SlamConfig, m: mapstate.MapState, mesh=None, n_iters: int = 10):
     """Global bundle adjustment over the whole map
     (`RunGlobalBundleAdjustment`, `src/LoopClosing.cc:873-1017`): the dense
     Schur solver (K9 at C = capacity_kf) while its dense W, Q x C x 18
     floats, fits in DENSE_GBA_BYTES, else PCG on the implicit Schur
-    complement. The robust kernel is off."""
+    complement; each sharded over the points if a mesh is given. The
+    robust kernel is off."""
     prob = global_ba_problem(cfg, m)
     cam = _camera(cfg, m.covis.device)
-    if prob.points.shape[0] * m.capacity_kf * 18 * 4 > DENSE_GBA_BYTES:
+    dense = prob.points.shape[0] * m.capacity_kf * 18 * 4 <= DENSE_GBA_BYTES
+    if mesh is not None and dense:
+        res = sharded_ba.solve_global_ba_sharded(cam, prob, cfg.level_sigma2, mesh,
+                                                 n_iters=n_iters, robust=False)
+    elif mesh is not None:
+        res = pcg_ba.solve_ba_pcg_sharded(cam, prob, cfg.level_sigma2, mesh, n_iters=n_iters)
+    elif not dense:
         res = pcg_ba.solve_ba_pcg(cam, prob, cfg.level_sigma2, n_iters=n_iters)
     else:
         res = schur_ba.solve_ba(cam, prob, cfg.level_sigma2, iters_a=n_iters, iters_b=0,

@@ -15,7 +15,6 @@ than two keyframes (local BA and keyframe culling run only then).
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -25,7 +24,8 @@ from ..geometry.triangulation import triangulate as dlt
 from ..mapstate import map as mapstate
 from ..ops import cuda_match, matching
 from ..solvers import schur_ba
-from ..utils.config import SlamConfig, SENSOR_MONOCULAR, device_table, reciprocal_f32
+from ..utils.config import (SlamConfig, SENSOR_MONOCULAR, device_cache, device_table,
+                            reciprocal_f32)
 from .frame import FrameData, _camera
 
 INVALID = -1
@@ -141,7 +141,7 @@ def cull_map_points(cfg: SlamConfig, m: mapstate.MapState, cur_kf=None):
 # Triangulation (LocalMapping::CreateNewMapPoints, src/LocalMapping.cc:295-622)
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=16)
+@device_cache()
 def _intrinsics(cfg: SlamConfig, device):
     """K and its inverse (float32, inverted on the CPU by LAPACK as the
     reference inverts it) on `device`."""

@@ -19,19 +19,39 @@ by running LocalMapping in its own thread). On a CUDA device the retire
 payload goes back by a non-blocking copy into pinned host memory behind a
 CUDA event, which the retire waits on.
 
+The tracking / mapping split (`mapping_device` with the stream): a
+keyframe's mapping pass (`mapping_ops.keyframe_pass`) runs on one worker
+thread while tracking goes on against the map as it was, and the next
+retire adopts its map (the reference's LocalMapping thread,
+`src/LocalMapping.cc:71-159`; the JAX package puts the pass on a second
+chip). On one GPU the worker issues the pass on a CUDA stream of its own:
+the pass is thousands of small operations issued from Python, so it
+overlaps tracking only if another host thread issues it. The worker's
+stream waits on an event recorded after the snapshot, the tracking stream
+waits on the pass's done event before it reads the adopted map, and the
+pending record holds the snapshot until then, so the caching allocator
+reuses none of its blocks early; the adopted tensors are recorded on the
+tracking stream. On another device the snapshot goes there and the map
+comes back by copies. On the CPU the worker thread runs the twins.
+
+`gba_mesh` (a `torch.distributed` device mesh, `parallel/distributed.py`)
+shards the essential graph and every global BA of loop closing over its
+ranks: every rank runs the same system on the same frames (README).
+
 Ported: RGB-D, stereo and monocular tracking and initialization (the
 monocular two-view bootstrap in `_initialize_monocular`), the natural
 keyframe policy, relocalization from LOST (`_relocalize`), loop closing
 with the global BA spread over later keyframes (`loop_closing.py`) and the
-periodic global BA, localization mode, reset, trajectory export. Not
-ported yet (ROADMAP Queue 1): the sharded global BA and the two-device
-split (item 5), the frame drawer (item 6); each raises
-NotImplementedError.
+periodic global BA, the sharded solvers, the tracking / mapping split,
+localization mode, reset, trajectory export. Not ported yet (ROADMAP
+Queue 1 item 6): the frame drawer, which raises NotImplementedError.
 """
 from __future__ import annotations
 
 import time
+import weakref
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -76,6 +96,26 @@ def _unpack(pk: np.ndarray):
     return pk[:n].astype(np.int64), pk[n:n + 16].reshape(4, 4), pk[n + 16:n + 32].reshape(4, 4)
 
 
+def _tensors(x):
+    """The tensors of a tensor or a (nested) tuple."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+def _to_device(x, dev):
+    """A tensor or a (nested, named) tuple of them on dev, by non-blocking
+    copies to a GPU (the split's snapshot and its adopted map)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, non_blocking=dev.type == "cuda")
+    if isinstance(x, tuple):
+        vals = [_to_device(v, dev) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
 def last_points(cfg: SlamConfig, m: mapstate.MapState, f: FrameData, Tcw, matched_pt):
     """The next motion-model step's 3D points after a keyframe or a reset of
     the chain (UpdateLastFrame, `src/Tracking.cc:1228-1330`): the frame's
@@ -116,12 +156,22 @@ class SlamSystem:
     def __init__(self, cfg: SlamConfig, vocabulary=None, enable_loop_closing=True,
                  gba_mesh=None, pipeline_depth: int = 0, mapping_device=None,
                  device="cuda"):
-        if gba_mesh is not None:
-            raise _not_ported("sharded global BA (gba_mesh)", 5)
-        if mapping_device is not None:
-            raise _not_ported("the two-device tracking / mapping split (mapping_device)", 5)
         self.cfg = cfg
         self.device = torch.device(device)
+        # the sharded global BA and essential graph (module docstring)
+        self.gba_mesh = gba_mesh
+        # the tracking / mapping split (module docstring): one worker thread,
+        # at most one pass in flight, on a stream of its own on a GPU
+        self.mapping_device = None if mapping_device is None else torch.device(mapping_device)
+        self._pending_mapping = None
+        self._mapper = self._map_stream = None
+        if self.mapping_device is not None:
+            self._mapper = ThreadPoolExecutor(max_workers=1, thread_name_prefix="mapping")
+            weakref.finalize(self, self._mapper.shutdown, False)
+            if self.mapping_device.type == "cuda":
+                self._map_stream = torch.cuda.Stream(self.mapping_device)
+        self.n_mapping_dispatched = 0    # split passes dispatched / adopted
+        self.n_mapping_adopted = 0
         # pipeline_depth > 0: the pipelined stream (module docstring)
         self.pipeline_depth = int(pipeline_depth)
         self._pending = deque()   # in flight: (timestamp, frame_id, res, payload)
@@ -585,7 +635,25 @@ class SlamSystem:
     def _retire_one(self):
         """Finish the oldest frame in flight: read its payload, run the host
         tail of the state machine (keyframe decision, trajectory). Returns
-        its pose, or None if it was lost."""
+        its pose, or None if it was lost. In the split, it first adopts the
+        mapping pass dispatched at the keyframe before."""
+        if self._pending_mapping is not None:
+            pend, (Tcw_kf, matched_kf) = self._adopt_pending()
+            # the map changes here, not at the dispatch: the frames in
+            # flight tracked against the map before the pass, so their
+            # statistics skip the keyframe decision (without this the split
+            # inserted a keyframe every ~4 frames: 40 against the stream's
+            # 19 on fig8-rgbd, PERF.md section 6)
+            self._kf_blackout_fid = self.frame_id
+            if pend["corrected"]:
+                # a correction or a global BA moved the poses: the chain is
+                # stale, so drain it and restart from the keyframe
+                self._drain_pipeline(record_lost=False)
+                self._set_last(pend["f"], Tcw_kf, matched_kf)
+                self._chain = None
+                if not self._pending:
+                    # the drain recorded every frame in flight
+                    return Tcw_kf
         timestamp, fid, res, payload = self._pending.popleft()
         sc, Tcw, T_rel = _unpack(self._payload_host(payload))
         ok = bool(sc[0])
@@ -634,8 +702,15 @@ class SlamSystem:
             # through mCurrentFrame.mvpMapPoints, src/Tracking.cc:1702-1712)
             newest = self._drain_pipeline(record_lost=False)
             ts2, fid2, res2, Tcw2 = newest if newest is not None else (timestamp, fid, res, Tcw)
-            Tcw_kf, matched_kf = self._handle_keyframe(res2.frame, Tcw2, res2.matched_pt,
-                                                       fid2, ts2)
+            if self._mapper is not None:
+                # the split: the pass runs beside the next frames, which
+                # track against the map as it is; the next retire adopts it
+                self._pending_mapping = self._dispatch_mapping(res2.frame, Tcw2,
+                                                               res2.matched_pt, fid2, ts2)
+                Tcw_kf, matched_kf = Tcw2, res2.matched_pt
+            else:
+                Tcw_kf, matched_kf = self._handle_keyframe(res2.frame, Tcw2, res2.matched_pt,
+                                                           fid2, ts2)
             self._set_last(res2.frame, Tcw_kf, matched_kf)
             self._chain = None
             # no keyframe decisions for frames dispatched before this insertion
@@ -683,6 +758,8 @@ class SlamSystem:
         trajectory (System::Shutdown waits for a running global BA before
         SaveTrajectory, src/System.cc:349-360)."""
         self._flush_pipeline()
+        if self._pending_mapping is not None:
+            self._adopt_pending()
         while self._gba_chunks_left > 0:
             self._gba_chunk()
 
@@ -691,7 +768,8 @@ class SlamSystem:
         ceil(gba_total_iters / gba_async_chunks) LM iterations."""
         cfg = self.cfg
         self.m = loop_closing.run_global_ba(
-            cfg, self.m, n_iters=max(1, -(-cfg.gba_total_iters // cfg.gba_async_chunks)))
+            cfg, self.m, mesh=self.gba_mesh,
+            n_iters=max(1, -(-cfg.gba_total_iters // cfg.gba_async_chunks)))
         self._gba_chunks_left -= 1
 
     # ------------------------------------------------------------------
@@ -709,22 +787,80 @@ class SlamSystem:
         return self._finish_keyframe(self._dispatch_mapping(f, Tcw, matched_pt, fid, timestamp))
 
     def _dispatch_mapping(self, f: FrameData, Tcw, matched_pt, fid: int, timestamp: float):
-        """Enqueue the keyframe's whole mapping pass; returns the event's
-        record."""
+        """Enqueue the keyframe's whole mapping pass (on the split's worker
+        when there is one); returns the event's record."""
         t_kf0 = time.time()
-        m_new, culled, summary = mapping_ops.keyframe_pass(
-            self.cfg, self.m, f, self._tensor(Tcw), matched_pt, fid, timestamp)
+        snap = (self.m, f, self._tensor(Tcw), matched_pt, fid, timestamp)
+        pend = dict(f=f, fid=fid, timestamp=timestamp, t_kf0=t_kf0, Tcw=np.asarray(Tcw))
+        if self._mapper is None:
+            pend["m"], pend["culled"], pend["summary"] = mapping_ops.keyframe_pass(self.cfg,
+                                                                                   *snap)
+        else:
+            ready = None
+            if self.device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self.device))
+            # the record holds the snapshot until adoption: its blocks stay
+            # out of the allocator while the worker's stream may read them
+            pend["snap"] = snap
+            pend["future"] = self._mapper.submit(self._mapping_pass, snap, ready)
+            self.n_mapping_dispatched += 1
         self.last_kf_frame_id = fid
         self._kf_seq_host += 1
-        return dict(m=m_new, culled=culled, summary=summary, f=f, fid=fid, timestamp=timestamp,
-                    kf_seq=self._kf_seq_host, t_kf0=t_kf0, Tcw=np.asarray(Tcw))
+        pend["kf_seq"] = self._kf_seq_host
+        return pend
+
+    def _mapping_pass(self, snap, ready):
+        """The split's worker: the mapping pass on mapping_device (on a GPU,
+        on the worker's stream, after the snapshot's event). Returns
+        (m, culled, summary) and the pass's done event (None off a GPU)."""
+        dev = self.mapping_device
+        if self._map_stream is None:
+            return mapping_ops.keyframe_pass(self.cfg, *_to_device(snap, dev)), None
+        with torch.cuda.device(dev), torch.cuda.stream(self._map_stream):
+            if ready is not None:
+                self._map_stream.wait_event(ready)
+            out = mapping_ops.keyframe_pass(self.cfg, *_to_device(snap, dev))
+            done = torch.cuda.Event()
+            done.record(self._map_stream)
+        return out, done
+
+    def _adopt_pending(self):
+        """Finish the keyframe of the split's pass in flight, timed as
+        stage_ms["mapping_adopt_wall"]. Returns (its record, (Tcw, the
+        keyframe's bindings))."""
+        t0 = time.time()
+        pend, self._pending_mapping = self._pending_mapping, None
+        out = self._finish_keyframe(pend)
+        self.stage_ms["mapping_adopt_wall"] = (time.time() - t0) * 1e3
+        return pend, out
+
+    def _wait_for_pass(self, pend):
+        """The split's pass, finished, on the tracking device: the tracking
+        stream waits for it, and each of its tensors is recorded on that
+        stream, so the allocator keeps a block until the tracking stream's
+        work on it is done."""
+        out, done = pend.pop("future").result()
+        if done is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(done)
+            if self.mapping_device == self.device:
+                for t in _tensors(out):
+                    t.record_stream(stream)
+        del pend["snap"]
+        return _to_device(out, self.device)
 
     def _finish_keyframe(self, pend):
         """Adopt a mapping pass: the keyframe's BoW row, loop detection,
         the one host transfer, the trajectory rehomed off culled keyframes,
         the candidates through compute_sim3 and correct_loop, a global-BA
-        chunk."""
+        chunk. In the split, the map the pass made supersedes the one the
+        frames tracked since the dispatch updated (their point counters),
+        as the reference's two threads race on a point's counters."""
         cfg = self.cfg
+        if "future" in pend:
+            pend["m"], pend["culled"], pend["summary"] = self._wait_for_pass(pend)
+            self.n_mapping_adopted += 1
         f, culled, summary = pend["f"], pend["culled"], pend["summary"]
         kf_seq = pend["kf_seq"]
         self.m = pend["m"]
@@ -762,7 +898,7 @@ class SlamSystem:
                 continue
             amortize = cfg.gba_async_chunks > 0
             self.m = loop_closing.correct_loop(cfg, self.m, kf_id, cand, Scm,
-                                               run_gba=not amortize)
+                                               mesh=self.gba_mesh, run_gba=not amortize)
             # the global BA spread over the next keyframes; chunks pending from
             # an older loop are dropped (mbStopGBA, src/LoopClosing.cc:559-572)
             self._gba_chunks_left = cfg.gba_async_chunks if amortize else 0
@@ -782,6 +918,7 @@ class SlamSystem:
             gba_chunk_ran = True
         corrected = (self._maybe_periodic_gba() or gba_chunk_ran or
                      self.n_loops_closed != loops_before)
+        pend["corrected"] = corrected
         if corrected:
             # the correction or the global BA moved the keyframes (this one
             # too): tracking continues from its pose, and the motion model,
@@ -801,7 +938,7 @@ class SlamSystem:
         if self._kfs_since_gba < self.cfg.gba_every_n_kf:
             return False
         self._kfs_since_gba = 0
-        self.m = loop_closing.run_global_ba(self.cfg, self.m)
+        self.m = loop_closing.run_global_ba(self.cfg, self.m, mesh=self.gba_mesh)
         return True
 
     def _need_kf_from_scalars(self, sc, fid=None) -> bool:
@@ -882,6 +1019,11 @@ class SlamSystem:
         self._n_kf_host = None
         self._pending.clear()      # results in flight belong to the old map
         self._chain = None
+        if self._pending_mapping is not None:
+            # the pass belongs to the old map; wait for it before its
+            # snapshot goes back to the allocator
+            self._wait_for_pass(self._pending_mapping)
+            self._pending_mapping = None
 
     def get_tracking_state(self):
         return self.state

@@ -1,6 +1,6 @@
 """Large-map bundle adjustment by preconditioned conjugate gradients on the
 implicit Schur complement (port of `orb_slam2_tpu/solvers/pcg_ba.py`,
-the unsharded solver).
+and its landmark-sharded form `solve_ba_pcg_sharded`).
 
 `schur_ba.solve_ba` forms the dense (Q, C) landmark-to-camera blocks, which
 global BA at large capacities cannot afford. This solver never forms
@@ -15,16 +15,21 @@ per-edge W_e = Jp^T Omega Jl, pt_on, err, chi2). The per-camera sums of the
 matvec are a product with the problem's (E, C) one-hot, so they run in a
 fixed order (no scatter-add) and a solve repeats bit for bit. Plain PyTorch
 on the problem's device; no host reads.
+
+Sharded over a mesh, each rank holds a block of the points and their
+edges: each matvec, the right-hand side and the block-Jacobi
+preconditioner are one all-reduce of a (C, 6) or (C, 6, 6) tensor, and
+the step's error one more, so the traffic of a CG iteration does not grow
+with the map.
 """
 from __future__ import annotations
 
 import torch
 
 from ..geometry import se3
-from ..utils.config import device_table
-from . import reproj
-from .schur_ba import (BAProblem, BAResult, Lin, _assemble, _chol3x3, _damped, _edges,
-                       _tri_inv_t)
+from ..parallel import distributed, sharded_ba
+from .schur_ba import (BAProblem, BAResult, Lin, _assemble_err, _chol3x3, _damped, _edges,
+                       _tri_inv_t, _weights)
 
 
 def _precompute(lin: Lin, lam):
@@ -53,25 +58,31 @@ def _push_to_cameras(pre, edges, u):
     return edges.onehot.T @ ye
 
 
-def _schur_matvec(pre, edges, x, free):
+def _sum(t, group):
+    """t summed over the ranks of a process group (t itself without one)."""
+    return t if group is None else distributed.all_reduce_sum(group, t)[0]
+
+
+def _schur_matvec(pre, edges, x, free, group=None):
     """y = S x with S = Hcc_d - W Hpp^-1 W^T, implicit. x (C,6)."""
     x = torch.where(free[:, None], x, torch.zeros_like(x))
     u = torch.einsum("qij,qj->qi", pre["Hpp_inv"], _push_to_points(pre, edges, x))
-    y = torch.einsum("cij,cj->ci", pre["Hcc_d"], x) - _push_to_cameras(pre, edges, u)
+    y = _sum(torch.einsum("cij,cj->ci", pre["Hcc_d"], x) - _push_to_cameras(pre, edges, u),
+             group)
     return torch.where(free[:, None], y, torch.zeros_like(y))
 
 
-def _reduced_rhs(pre, edges, free):
+def _reduced_rhs(pre, edges, free, group=None):
     """b_red = bc - W Hpp^-1 bp."""
     u = torch.einsum("qij,qj->qi", pre["Hpp_inv"], pre["bp"])
-    b = pre["bc"] - _push_to_cameras(pre, edges, u)
+    b = _sum(pre["bc"] - _push_to_cameras(pre, edges, u), group)
     return torch.where(free[:, None], b, torch.zeros_like(b))
 
 
-def _pcg(pre, edges, b, free, n_iters: int):
+def _pcg(pre, edges, b, free, n_iters: int, group=None):
     """Block-Jacobi preconditioned CG on the reduced camera system."""
     eye6 = torch.eye(6, dtype=torch.float32, device=b.device)
-    M = torch.where(free[:, None, None], pre["Hcc_d"], eye6)
+    M = torch.where(free[:, None, None], _sum(pre["Hcc_d"], group), eye6)
     Minv = torch.linalg.inv_ex(M + 1e-8 * eye6)[0]
 
     def apply_M(r):
@@ -84,7 +95,7 @@ def _pcg(pre, edges, b, free, n_iters: int):
     p = z
     rz = (r * z).sum()
     for _ in range(n_iters):
-        Ap = _schur_matvec(pre, edges, p, free)
+        Ap = _schur_matvec(pre, edges, p, free, group)
         pAp = (p * Ap).sum()
         alpha = rz / torch.where(torch.abs(pAp) < 1e-20, tiny, pAp)
         x = x + alpha * p
@@ -97,12 +108,39 @@ def _pcg(pre, edges, b, free, n_iters: int):
     return x
 
 
-def _step(pre, edges, free, cg_iters: int):
+def _step(pre, edges, free, cg_iters: int, group=None):
     """The camera step by PCG, then the landmarks back-substituted."""
-    dx_c = _pcg(pre, edges, _reduced_rhs(pre, edges, free), free, cg_iters)
+    dx_c = _pcg(pre, edges, _reduced_rhs(pre, edges, free, group), free, cg_iters, group)
     v = _push_to_points(pre, edges, dx_c)
     dx_p = torch.einsum("qij,qj->qi", pre["Hpp_inv"], pre["bp"] - v)
     return dx_c, torch.where(pre["pt_on"][:, None], dx_p, torch.zeros_like(dx_p))
+
+
+def _solve(cam, prob: BAProblem, level_sigma2, n_iters: int, cg_iters: int, robust: bool,
+           group) -> BAResult:
+    """The LM loop of `solve_ba_pcg`; with a process group, prob is this
+    rank's block of points and the result that block's."""
+    inv_sigma2, base_mask, delta2 = _weights(prob, level_sigma2)
+    mask = base_mask.to(torch.float32)
+    free = prob.cam_valid & ~prob.cam_fixed
+    edges = _edges(prob, inv_sigma2)
+
+    poses, points = prob.poses, prob.points
+    lin = _assemble_err(cam, prob, edges, poses, points, mask, robust, group)
+    lam = torch.full((), 1e-4, dtype=torch.float32, device=poses.device)
+    for _ in range(n_iters):
+        dx_c, dx_p = _step(_precompute(lin, lam), edges, free, cg_iters, group)
+        poses_new = se3.retract(poses, dx_c)
+        points_new = points + dx_p
+        lin_new = _assemble_err(cam, prob, edges, poses_new, points_new, mask, robust, group)
+        accept = lin_new.err < lin.err         # False for NaN: the step is rejected
+        poses = torch.where(accept, poses_new, poses)
+        points = torch.where(accept, points_new, points)
+        lin = Lin(*(torch.where(accept, a, b) for a, b in zip(lin_new, lin)))
+        lam = torch.where(accept, torch.clamp(lam * 0.3, min=1e-9),
+                          torch.clamp(lam * 5.0, max=1e4))
+    inlier = base_mask & (lin.chi2 <= delta2) & lin.depth_ok
+    return BAResult(poses=poses, points=points, edge_inlier=inlier, chi2=lin.chi2)
 
 
 def solve_ba_pcg(cam, prob: BAProblem, level_sigma2, n_iters: int = 10, cg_iters: int = 50,
@@ -112,30 +150,17 @@ def solve_ba_pcg(cam, prob: BAProblem, level_sigma2, n_iters: int = 10, cg_iters
     linearization at a tentative state is K9's assembly, which also gives
     its error and, if kept, the next step's pieces. Returns the final
     chi2 classification (5.991 / 7.815 and positive depth)."""
-    C = prob.poses.shape[0]
-    sigma2 = device_table(tuple(level_sigma2), prob.points.device)
-    inv_sigma2 = 1.0 / sigma2[torch.clamp(prob.obs_level, 0, sigma2.shape[0] - 1).long()]
-    base_mask = (prob.obs_cam >= 0) & prob.pt_valid[:, None] & \
-        prob.cam_valid[torch.clamp(prob.obs_cam, 0, C - 1).long()]
-    mask = base_mask.to(torch.float32)
-    free = prob.cam_valid & ~prob.cam_fixed
-    edges = _edges(prob, inv_sigma2)
+    return _solve(cam, prob, level_sigma2, n_iters, cg_iters, robust, None)
 
-    poses, points = prob.poses, prob.points
-    lin = _assemble(cam, prob, edges, poses, points, mask, robust)
-    lam = torch.full((), 1e-4, dtype=torch.float32, device=poses.device)
-    for _ in range(n_iters):
-        dx_c, dx_p = _step(_precompute(lin, lam), edges, free, cg_iters)
-        poses_new = se3.retract(poses, dx_c)
-        points_new = points + dx_p
-        lin_new = _assemble(cam, prob, edges, poses_new, points_new, mask, robust)
-        accept = lin_new.err < lin.err         # False for NaN: the step is rejected
-        poses = torch.where(accept, poses_new, poses)
-        points = torch.where(accept, points_new, points)
-        lin = Lin(*(torch.where(accept, a, b) for a, b in zip(lin_new, lin)))
-        lam = torch.where(accept, torch.clamp(lam * 0.3, min=1e-9),
-                          torch.clamp(lam * 5.0, max=1e4))
-    stereo = prob.obs_uvr[..., 2] >= 0
-    delta2 = torch.where(stereo, reproj.CHI2_STEREO, reproj.CHI2_MONO)
-    inlier = base_mask & (lin.chi2 <= delta2) & lin.depth_ok
-    return BAResult(poses=poses, points=points, edge_inlier=inlier, chi2=lin.chi2)
+
+def solve_ba_pcg_sharded(cam, prob: BAProblem, level_sigma2, mesh, n_iters: int = 10,
+                         cg_iters: int = 50, robust: bool = False) -> BAResult:
+    """`solve_ba_pcg` with the point axis sharded over `mesh` (a 1-D
+    `DeviceMesh`; Q must divide by its size): each rank linearizes its
+    block of points by K9, and its Hcc is damped by the block's own
+    diagonal before the sum, as in the reference's sharded PCG. The whole
+    problem's result on every rank."""
+    group = mesh.get_group()
+    res = _solve(cam, sharded_ba.landmark_block(prob, group), level_sigma2, n_iters, cg_iters,
+                 robust, group)
+    return sharded_ba.gather_result(res, group)

@@ -11,7 +11,10 @@ differentiation through exp / compose / log (dual tensors, the reference's
 system is H = J^T J of the dense (7E x 7K) Jacobian, one matrix product, so
 its sums run in a fixed order (no scatter-add), and it is solved by a
 damped Cholesky: 896 x 896 at K = 128. Plain PyTorch on the problem's
-device (cuBLAS, cuSOLVER), no host reads.
+device (cuBLAS, cuSOLVER), no host reads. With a process group
+(`parallel/sharded_pose_graph.py`) the problem holds this rank's block of
+edges: (H, b) is summed over the ranks by one all-reduce before the
+damping, and so is the error.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch.autograd.forward_ad as fwAD
 
 from ..geometry import sim3
 from ..geometry.sim3 import Sim3
+from ..parallel import distributed
 
 
 class PoseGraphProblem(NamedTuple):
@@ -71,7 +75,7 @@ def _edge_terms(prob: PoseGraphProblem, nodes: Sim3, jacobians: bool = True):
     return r[:E], dr[0], dr[1]
 
 
-def _solve_iteration(prob: PoseGraphProblem, nodes: Sim3, lam, fix_scale: bool):
+def _solve_iteration(prob: PoseGraphProblem, nodes: Sim3, lam, fix_scale: bool, group=None):
     """One damped Gauss-Newton step: returns the updated nodes."""
     K = prob.node_valid.shape[0]
     r, Ji, Jj = _edge_terms(prob, nodes)
@@ -87,6 +91,8 @@ def _solve_iteration(prob: PoseGraphProblem, nodes: Sim3, lam, fix_scale: bool):
     J = J.reshape(-1, K * 7)
     H = J.T @ J
     b = -(J.T @ (r * w[:, None]).reshape(-1))
+    if group is not None:
+        H, b = distributed.all_reduce_sum(group, H, b)
 
     free = prob.node_valid & ~prob.node_fixed
     free7 = free.repeat_interleave(7)
@@ -107,23 +113,25 @@ def _solve_iteration(prob: PoseGraphProblem, nodes: Sim3, lam, fix_scale: bool):
     return sim3.compose(sim3.exp(dx), nodes)
 
 
-def _error(prob: PoseGraphProblem, nodes: Sim3):
+def _error(prob: PoseGraphProblem, nodes: Sim3, group=None):
     r, _, _ = _edge_terms(prob, nodes, jacobians=False)
-    return (r * r * prob.edge_valid.to(torch.float32)[:, None]).sum()
+    err = (r * r * prob.edge_valid.to(torch.float32)[:, None]).sum()
+    return err if group is None else distributed.all_reduce_sum(group, err)[0]
 
 
 def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20,
-                        fix_scale: bool = False) -> Sim3:
+                        fix_scale: bool = False, group=None) -> Sim3:
     """Gauss-Newton with a small damping (the reference's lambda_init is
     1e-16, `src/Optimizer.cc:1084`), n_iters steps, each kept only if it
     lowers the error (lambda halves on a kept step, grows 10x otherwise).
-    Returns the optimized nodes."""
+    Returns the optimized nodes. `group`: prob holds this rank's edges
+    (`sharded_pose_graph.optimize_pose_graph_sharded`)."""
     nodes = prob.nodes
     lam = torch.full((), 1e-8, dtype=torch.float32, device=nodes.t.device)
-    cur = _error(prob, nodes)
+    cur = _error(prob, nodes, group)
     for _ in range(n_iters):
-        new = _solve_iteration(prob, nodes, lam, fix_scale)
-        err = _error(prob, new)
+        new = _solve_iteration(prob, nodes, lam, fix_scale, group)
+        err = _error(prob, new, group)
         accept = err < cur                 # False for NaN: the step is rejected
         nodes = sim3.where(accept.expand(nodes.s.shape), new, nodes)
         lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-12),

@@ -23,14 +23,14 @@ spreads it to every camera), and the step is rejected either way.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
 
 from ..geometry import se3
 from ..ops import cuda_ba
-from ..utils.config import device_table
+from ..parallel import distributed
+from ..utils.config import device_cache, device_table
 from . import reproj
 
 
@@ -153,7 +153,7 @@ def _tri_inv_t(L):
                         torch.stack([zero, zero, m33], dim=-1)], dim=-2)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache()
 def _block_index(C: int, device):
     """Row and column indices of the C 6x6 diagonal blocks of a 6C x 6C
     matrix, in the order of a (C,6,6) tensor."""
@@ -167,11 +167,16 @@ def _damped(H, lam):
     return H + lam * torch.eye(n, dtype=H.dtype, device=H.device) * scale[:, None, None]
 
 
-def _solve_step(prob: BAProblem, edges: _Edges, lin: Lin, lam):
+def _solve_step(prob: BAProblem, edges: _Edges, lin: Lin, lam, group=None):
     """The damped Schur solve from a linearization, in A-form: with
     L = chol(Hpp_d)^-T and A_e = W_e L, U = sum over a point's observations
     of A_e per camera (6C x 3Q) gives S_corr = U U^T, b_red = bc - U (L^T bp)
-    and dx_p = L (L^T bp - U^T dx_c). Returns (dx_c (C,6), dx_p (Q,3))."""
+    and dx_p = L (L^T bp - U^T dx_c). Returns (dx_c (C,6), dx_p (Q,3)).
+    With a process group, lin is this rank's block of points: its S and
+    b_red (Hcc damped by the block's own diagonal, as the reference's
+    sharded solve damps it) are summed over the ranks by one all-reduce,
+    every rank solves the sum, and the points are back-substituted
+    locally."""
     C = lin.Hcc.shape[0]
     Q, O = lin.chi2.shape
     dev = lin.Hcc.device
@@ -196,6 +201,8 @@ def _solve_step(prob: BAProblem, edges: _Edges, lin: Lin, lam):
     S = Hcc_dense - S_corr
     y = torch.einsum("qkl,qk->ql", L, lin.bp)             # L^T bp
     b_red = lin.bc.reshape(C * 6) - U2 @ y.reshape(Q * 3)
+    if group is not None:
+        S, b_red = distributed.all_reduce_sum(group, S, b_red)
 
     # fixed and unused cameras: identity rows and columns, zero rhs
     free = prob.cam_valid & ~prob.cam_fixed
@@ -217,20 +224,33 @@ def _solve_step(prob: BAProblem, edges: _Edges, lin: Lin, lam):
     return dx_c, dx_p
 
 
+def _assemble_err(cam, prob: BAProblem, edges: _Edges, poses, points, edge_mask, robust: bool,
+                  group):
+    """`_assemble`, its err summed over the ranks of a process group (the
+    reference's `_chi2_total`: one all-reduce)."""
+    lin = _assemble(cam, prob, edges, poses, points, edge_mask, robust)
+    if group is None:
+        return lin
+    return lin._replace(err=distributed.all_reduce_sum(group, lin.err)[0])
+
+
 def _lm_iterations(cam, prob: BAProblem, edges: _Edges, poses, points, edge_mask,
-                   robust: bool, n_iters: int):
+                   robust: bool, n_iters: int, group=None):
     """One edge pass per iteration: the assembly at the tentative state
     gives both the accept/reject error and, if accepted, the next step's
     linearization; a rejected step keeps the carried one and raises lambda.
     Returns (poses, points, lin), lin the linearization at the returned
-    state."""
-    lin = _assemble(cam, prob, edges, poses, points, edge_mask, robust)
+    state. With a process group, prob holds this rank's block of points
+    (`parallel/sharded_ba.py`): two all-reduces an iteration, the reduced
+    system and the error."""
+    lin = _assemble_err(cam, prob, edges, poses, points, edge_mask, robust, group)
     lam = torch.full((), 1e-4, dtype=torch.float32, device=poses.device)
     for _ in range(n_iters):
-        dx_c, dx_p = _solve_step(prob, edges, lin, lam)
+        dx_c, dx_p = _solve_step(prob, edges, lin, lam, group)
         poses_new = se3.retract(poses, dx_c)
         points_new = points + dx_p
-        lin_new = _assemble(cam, prob, edges, poses_new, points_new, edge_mask, robust)
+        lin_new = _assemble_err(cam, prob, edges, poses_new, points_new, edge_mask, robust,
+                                group)
         accept = lin_new.err < lin.err        # False for NaN: the step is rejected
         poses = torch.where(accept, poses_new, poses)
         points = torch.where(accept, points_new, points)
@@ -240,19 +260,26 @@ def _lm_iterations(cam, prob: BAProblem, edges: _Edges, poses, points, edge_mask
     return poses, points, lin
 
 
-def solve_ba(cam, prob: BAProblem, level_sigma2, iters_a: int = 5, iters_b: int = 10,
-             robust: bool = True) -> BAResult:
-    """The reference's local-BA schedule (`src/Optimizer.cc:880-1010`):
-    iters_a robust iterations, chi2 reclassification (5.991 / 7.815 and
-    positive depth), iters_b more, and the final classification for the
-    caller's observation erasure. No host sync."""
+def _weights(prob: BAProblem, level_sigma2):
+    """Each edge's 1/sigma^2 (Q,O), the edges of a valid point on a valid
+    camera (Q,O) bool, and each edge's chi2 threshold (5.991 mono, 7.815
+    stereo)."""
     C = prob.poses.shape[0]
     sigma2 = device_table(tuple(level_sigma2), prob.points.device)
     inv_sigma2 = 1.0 / sigma2[torch.clamp(prob.obs_level, 0, sigma2.shape[0] - 1).long()]
     base_mask = (prob.obs_cam >= 0) & prob.pt_valid[:, None] & \
         prob.cam_valid[torch.clamp(prob.obs_cam, 0, C - 1).long()]
     stereo = prob.obs_uvr[..., 2] >= 0
-    delta2 = torch.where(stereo, reproj.CHI2_STEREO, reproj.CHI2_MONO)
+    return inv_sigma2, base_mask, torch.where(stereo, reproj.CHI2_STEREO, reproj.CHI2_MONO)
+
+
+def solve_ba(cam, prob: BAProblem, level_sigma2, iters_a: int = 5, iters_b: int = 10,
+             robust: bool = True) -> BAResult:
+    """The reference's local-BA schedule (`src/Optimizer.cc:880-1010`):
+    iters_a robust iterations, chi2 reclassification (5.991 / 7.815 and
+    positive depth), iters_b more, and the final classification for the
+    caller's observation erasure. No host sync."""
+    inv_sigma2, base_mask, delta2 = _weights(prob, level_sigma2)
     edges = _edges(prob, inv_sigma2)
 
     poses, points, lin = _lm_iterations(cam, prob, edges, prob.poses, prob.points,

@@ -12,6 +12,7 @@ import dataclasses
 import functools
 import math
 import re
+import threading
 from typing import Optional
 
 SENSOR_MONOCULAR = 0
@@ -23,7 +24,36 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1)).bit_length()
 
 
-@functools.lru_cache(maxsize=64)
+_TABLES_LOCK = threading.RLock()
+
+
+def device_cache(maxsize: int = 16):
+    """`functools.lru_cache` for a function that builds constant tensors on
+    the `torch.device` it is given, safe where two host threads issue work
+    on two CUDA streams (the tracking / mapping split): one thread builds
+    at a time, and the stream that built a CUDA table is synchronized
+    before the table is handed out, so a launch on another stream never
+    reads it before it is written."""
+    def wrap(fn):
+        @functools.lru_cache(maxsize=maxsize)
+        def build(*args):
+            out = fn(*args)
+            import torch
+            for a in args:
+                if isinstance(a, torch.device) and a.type == "cuda":
+                    torch.cuda.current_stream(a).synchronize()
+            return out
+
+        @functools.wraps(fn)
+        def get(*args):
+            with _TABLES_LOCK:
+                return build(*args)
+        get.cache_clear = build.cache_clear
+        return get
+    return wrap
+
+
+@device_cache(maxsize=64)
 def device_table(values: tuple, device):
     """A float32 tensor of `values` on `device`, made once per device: a
     fresh host-to-device copy on every call would wait for the stream."""

@@ -22,6 +22,7 @@ NaN.
 """
 import os
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -1158,3 +1159,121 @@ def test_initialize_on_the_card_against_the_cpu(cuda):
         assert torch.allclose(card.R21.cpu(), cpu.R21, atol=1e-4)
         assert torch.allclose(card.t21.cpu(), cpu.t21, atol=1e-4)
         assert float((card.good.cpu() == cpu.good).float().mean()) >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# Multi-device: K5 from two host threads, K9 on a landmark shard, the
+# sharded solvers at one NCCL rank, the tracking / mapping split
+# ---------------------------------------------------------------------------
+
+def test_proj_match_from_two_threads_on_two_streams(cuda):
+    """K5 launched at once from two host threads, each on a stream of its
+    own (the split's tracking search and its mapping pass's fusion): every
+    launch counted, every result its twin's bit for bit."""
+    rng = np.random.default_rng(21)
+    cases = [_proj_inputs(rng, 8192, 2048, cuda) for _ in range(2)]
+    streams = [torch.cuda.Stream(cuda) for _ in cases]
+    torch.cuda.synchronize()
+    got, barrier = [[], []], threading.Barrier(2)
+
+    def work(i):
+        with torch.cuda.stream(streams[i]):
+            barrier.wait()
+            for _ in range(20):
+                got[i].append(cm.projection_best_two(*cases[i]))
+        streams[i].synchronize()
+
+    before = launch.LAUNCHES["proj_match"]
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert launch.LAUNCHES["proj_match"] == before + 40
+    for args, runs in zip(cases, got):
+        want = cm.projection_best_two_plain(*args)
+        assert len(runs) == 20
+        for out in runs:
+            assert all(torch.equal(g, w) for g, w in zip(out, want))
+
+
+def test_ba_edge_kernel_at_the_shard_shape(cuda):
+    """K9 on one of two landmark blocks of global BA at the bench's
+    capacities (the sharded global BA at W = 2): C = 128, 8192 x 12 =
+    98,304 edges, the robust kernel off: every `Lin` field bit for bit with
+    its twin, and a second launch repeats it."""
+    cam, poses, points, pt_valid, edges, mask = _ba_problem(np.random.default_rng(13), 8192,
+                                                            12, 128, cuda)
+    args = (cam, poses, points, pt_valid, edges, mask, False)
+    got, again = cb.ba_assemble(*args), cb.ba_assemble(*args)
+    want = cb.ba_assemble_plain(*args)
+    torch.cuda.synchronize()
+    _lin_equal(got, want)
+    _lin_equal(got, again)
+
+
+def test_sharded_solvers_at_one_nccl_rank_equal_the_unsharded(cuda):
+    """`init_distributed()` alone is one NCCL rank; on it the sharded
+    global BA equals `schur_ba.solve_ba` and the sharded PCG `solve_ba_pcg`
+    bit for bit (one rank's all-reduce is a copy, and it damps as the
+    unsharded solve does), on the drifted map's global BA problem."""
+    import torch.distributed as dist
+    from orb_slam2_tpu_torch.parallel import distributed, sharded_ba
+    from orb_slam2_tpu_torch.pipeline import loop_closing as lc
+    from orb_slam2_tpu_torch.solvers import pcg_ba
+
+    cfg, m = _drifted_map(cuda)
+    prob, cam = lc.global_ba_problem(cfg, m), cfg.camera(cuda)
+    mesh = distributed.init_distributed()
+    try:
+        assert dist.get_backend() == "nccl" and mesh.size() == 1
+        pairs = [(sharded_ba.solve_global_ba_sharded(cam, prob, cfg.level_sigma2, mesh,
+                                                     n_iters=5),
+                  schur_ba.solve_ba(cam, prob, cfg.level_sigma2, iters_a=5, iters_b=0,
+                                    robust=False)),
+                 (pcg_ba.solve_ba_pcg_sharded(cam, prob, cfg.level_sigma2, mesh, n_iters=5),
+                  pcg_ba.solve_ba_pcg(cam, prob, cfg.level_sigma2, n_iters=5))]
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for got, want in pairs:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_split_on_the_card(cuda):
+    """The tracking / mapping split on one card (the mapping pass on a
+    second stream, issued by the worker thread) against the stream without
+    it, on tests/test_torch_pipeline_split.py's sequence: the ATE band, the
+    keyframes within 3, every pass adopted, the map on the card."""
+    from orb_slam2_tpu_torch.pipeline import system
+    from orb_slam2_tpu_torch.utils.synthetic import PlaneWorld, lateral_trajectory
+    from orb_slam2_tpu_torch.utils.trajectory import ate_rmse
+
+    fx = 300.0
+    cfg = SlamConfig(fx=fx, fy=fx, cx=160.0, cy=120.0, width=320, height=240, n_features=400,
+                     fps=10.0, th_depth=60.0, sensor=SENSOR_RGBD, bf=fx * 0.1, max_keyframes=32,
+                     max_map_points=1 << 13, ba_local_cams=8, ba_fixed_cams=8,
+                     ba_max_points=1 << 10, ba_max_obs=6, max_local_keyframes=16,
+                     max_local_points=1 << 11)
+    world = PlaneWorld(fx, fx, 160.0, 120.0, 320, 240, z0=4.0)
+    gt = lateral_trajectory(24, step=0.08, yaw_rate=0.004)
+    frames = [world.render_with_depth(T) for T in gt]
+    runs = []
+    for mapping_device in (None, cuda):
+        s = system.SlamSystem(cfg, enable_loop_closing=False, pipeline_depth=2,
+                              mapping_device=mapping_device, device=cuda)
+        for i, (img, depth) in enumerate(frames):
+            s.track_rgbd(img, depth, i / cfg.fps)
+        s.flush()
+        torch.cuda.synchronize()
+        traj = s.get_trajectory()
+        assert len(traj) >= 0.95 * len(gt)
+        runs.append((s, ate_rmse(traj, [(i / cfg.fps, T) for i, T in enumerate(gt)])))
+    (one, ate_one), (two, ate_two) = runs
+    assert ate_two < max(3.0 * ate_one, 0.03)
+    assert two.n_mapping_adopted == two.n_mapping_dispatched >= 2
+    assert two.stage_ms.get("mapping_adopt_wall") is not None
+    assert abs(int(two.m.n_keyframes) - int(one.m.n_keyframes)) <= 3
+    assert two.m.kf_pose.device == cuda and bool(torch.isfinite(two.m.pt_pos).all())

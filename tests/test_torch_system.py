@@ -221,8 +221,14 @@ def test_unported_options_raise(seq):
     s = tsystem.SlamSystem(cfg, device="cpu")
     assert s.enable_loop_closing
     tsystem.SlamSystem(dataclasses.replace(cfg, gba_every_n_kf=5), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tsystem.SlamSystem(cfg, gba_mesh=object(), device="cpu")
+    # multi-device (item 5) is ported: a mesh and a mapping device construct
+    # (tests/test_torch_parallel.py and tests/test_torch_pipeline_split.py
+    # hold them against the reference)
+    mesh = object()
+    assert tsystem.SlamSystem(cfg, gba_mesh=mesh, device="cpu").gba_mesh is mesh
+    split = tsystem.SlamSystem(cfg, enable_loop_closing=False, pipeline_depth=2,
+                               mapping_device="cpu", device="cpu")
+    assert split.mapping_device == torch.device("cpu") and split._mapper is not None
     # monocular and stereo tracking (item 4) are ported: both entry points
     # construct and take a frame (tests/test_torch_mono.py and
     # tests/test_torch_stereo.py hold them against the reference)
@@ -235,8 +241,5 @@ def test_unported_options_raise(seq):
                                 device="cpu")
     stereo.track_stereo(gray, gray, 0.0)
     assert stereo.frame_id == 1 and stereo.last_frame is not None
-    for call, item in ((lambda: s.draw_current_frame(gray), "item 6"),
-                       (lambda: tsystem.SlamSystem(cfg, enable_loop_closing=False,
-                                                   mapping_device="cpu", device="cpu"), "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="item 6"):
+        s.draw_current_frame(gray)
