@@ -83,14 +83,15 @@ Phases (each prints its result; any failure exits non-zero):
                stages, each global-BA chunk (the first lap's and the
                second's), K9 at the global BA's shape.
 8. stereo    — EVAL.md's block-stereo row (BlockWorld, the street canyon,
-               780 frames, bf 0.5 fx) through SlamSystem.track_stereo with
+               its first 390 of 780 frames, bf 0.5 fx) through
+               SlamSystem.track_stereo with
                its defaults, the pairs rendered on a thread pool ahead of
                the tracker, then flush(); checked against the JAX reference's
                SlamSystem on the same frames (REFERENCE_STEREO: the states
                of frames 0-30, the keyframes there, the frames tracked, the
                ATE, the closures, the keyframe count); K1, K2 and K3 twice a
                frame; host syncs per frame no more than the [loop] lap's; a
-               depth-3 stream; the stereo matcher on the card against the
+               depth-3 stream of the first 240 frames; the stereo matcher on the card against the
                CPU and a right image's K1-K3 against their twins. Timed:
                track_stereo, make_frame_stereo, the matcher, K1-K3 on a
                right image beside their bounds;
@@ -102,24 +103,28 @@ Phases (each prints its result; any failure exits non-zero):
                ATE, the keyframe count); the initialization on the card
                against the CPU with the same draws (SearchForInitialization,
                K4 at its gate and K9 at C = 2 bit for bit, R and t within
-               1e-4); a depth-3 stream. Timed: track_monocular, the
-               initialization's search, RANSAC and CheckRT, the two-view
-               BA, K4 at the init gate and K9 at C = 2 beside their bounds;
+               1e-4); a depth-3 stream of the first 240 frames. Timed:
+               track_monocular, the initialization's search, RANSAC and
+               CheckRT, the two-view BA, K4 at the init gate and K9 at
+               C = 2 beside their bounds;
 10. multi    — after [loop], on its renders and its final map: the
                tracking / mapping split (SlamSystem(pipeline_depth=3,
                mapping_device=the card): each keyframe's mapping pass on a
                second CUDA stream, issued by a worker thread, adopted at the
-               next retire) against the stream without it, both with loop
-               closing on (frames tracked, ATE, keyframes, every pass
-               adopted, the map on the card); the sharded solvers at one
-               NCCL rank against the unsharded ones bit for bit on the
-               final map's global BA problem and the closure's essential
-               graph; two ranks spawned on the one card over gloo, each
-               K9 on its half of the points, against one rank: within
+               next retire) beside the stream without it, both with loop
+               closing on (frames tracked, the ATE within 3x [loop]'s
+               synchronous lap's, keyframes against REFERENCE_SPLIT's
+               split, every pass adopted, the map on the card); the
+               sharded solvers at one NCCL rank against the unsharded ones
+               bit for bit on the final map's global BA problem and the
+               closure's essential graph; two ranks spawned on the one card
+               over gloo, each K9 on its half of the points (shuffled, so
+               both halves hold live points), against one rank: within
                1e-4 after one LM iteration, within [loop]'s PCG bounds
-               after ten. Timed: both laps' frames per second and ms per call
-               (plain, keyframe, adoption), the solves, the all-reduces, K9
-               at the shard's shape beside its bound.
+               after ten. Timed: both laps' frames per second and ms per
+               call (plain, keyframe, adoption), the solves and their
+               collectives, the all-reduces, K9 at the shard's shape beside
+               its bound.
 The second-to-last line is the kernels' JSON record (K4's two forms apart:
 best_two the window form, best_two_node the node form); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -206,16 +211,25 @@ REFERENCE_LOOP = {'loops': 1, 'closures': [{'kf_seq': 16, 'kf_frame': 315, 'cand
                                                                       70, 91]}],
                   'tracked': 560, 'keyframes_inserted': 27, 'keyframes': 27, 'points': 3027,
                   'loop_edge_frames': [[315, 16]], 'ate_m': 0.034936}
+# the [multi] phase's numbers: scripts/chip_smoke_reference.py --split-only
+# (the same lap at depth STREAM_DEPTH as the stream and as the tracking /
+# mapping split: the loops closed, each closure's keyframe sequence number and
+# frames, the frames tracked, the keyframes inserted and the ATE)
+REFERENCE_SPLIT = {
+    'stream': {'loops': 1, 'closures': [{'kf_seq': 19, 'kf_frame': 537, 'cand_frame': 0}],
+               'tracked': 560, 'keyframes_inserted': 19, 'ate_m': 0.082113},
+    'split': {'loops': 2, 'closures': [{'kf_seq': 20, 'kf_frame': 232, 'cand_frame': 0},
+                                       {'kf_seq': 39, 'kf_frame': 537, 'cand_frame': 0}],
+              'tracked': 560, 'keyframes_inserted': 40, 'ate_m': 0.082278}}
 # the [stereo] and [mono] phases' numbers: scripts/chip_smoke_reference.py
 # --stereo-only / --mono-only (the reference SlamSystem handed the port's
-# CPU-extracted frames; the mono runs with RANSAC keys frame_id + k, k < 3)
-REFERENCE_STEREO = {'loops': 0, 'closures': [], 'tracked': 780, 'keyframes_inserted': 58,
-                    'keyframes': 58, 'states': [1] * 31, 'ate_m': 0.299958,   # states: frames 0-30
+# CPU-extracted frames; [stereo] the row's first BLOCK_LAP pairs; the mono runs with
+# RANSAC keys frame_id + k, k < 3)
+REFERENCE_STEREO = {'loops': 0, 'closures': [], 'tracked': 390, 'keyframes_inserted': 31,
+                    'keyframes': 31, 'states': [1] * 31, 'ate_m': 0.110659,   # states: frames 0-30
                     'kf_frames': [8, 9, 16, 22, 31, 42, 60, 89, 119, 136, 150, 160, 167, 178,
                                   185, 196, 206, 216, 233, 256, 288, 305, 318, 330, 337, 346,
-                                  354, 364, 374, 384, 398, 421, 454, 472, 489, 498, 505, 515,
-                                  527, 539, 552, 565, 585, 608, 631, 646, 660, 670, 676, 685,
-                                  693, 702, 710, 719, 732, 750, 779]}
+                                  354, 364, 374, 384]}
 REFERENCE_MONO = [   # RANSAC keys frame_id + 0, 1, 2
     {'loops': 0, 'closures': [], 'tracked': 559, 'keyframes_inserted': 89, 'keyframes': 76,
      'init_frame': 2, 'ate_m': 0.08022},
@@ -256,9 +270,11 @@ STREAM_DEPTH = 3            # the [system] phase's stream lap (bench.py's defaul
 LOOP_FRAMES = 560           # the [loop] phase's figure eight (EVAL.md's fig8-rgbd row)
 SEQ_FRAMES_CHECKED = 31     # [stereo]: the first frames, whose states must equal the reference's
 BLOCK_FRAMES = 780          # the street canyon of EVAL.md's block-stereo row
+BLOCK_LAP = 390             # [stereo]: its first frames, driven (cut for the time limit)
+STREAM_LAP = 240            # [stereo], [mono]: the stream lap's frames (the same cut)
 BLOCK_BASELINE = 0.5        # m: bf = 0.5 fx, KITTI-flavoured
 RENDER_AHEAD = 48           # frames rendered ahead of the tracker (a bounded queue)
-STEREO_TIMED = 120          # [stereo]: frames timed again with no renderer running
+STEREO_TIMED = 60           # [stereo]: frames timed again with no renderer running
 LOOP_KF_SLACK = 3           # keyframes a closure may move from the reference's (covis_consistency_th)
 LOOP_TRACKED_FLOOR = 0.95   # fraction of the frames the [loop] lap must track
 GENUINE_LOOP_M = 4.0        # a closure's two views: true camera centres at most 4 m apart
@@ -2426,7 +2442,7 @@ def loop_phase(cfg, voc, dev, card, errs, clean):
 # [multi]: the tracking / mapping split and the sharded solvers
 # ---------------------------------------------------------------------------
 
-MULTI_KF_SLACK = 0.2        # the split's keyframes against the stream's, a share
+MULTI_KF_SLACK = 0.2        # the split's keyframes against the reference split's, a share
 SHARD_TOL = 1e-4            # two ranks against one after one LM step (tests/test_parallel.py:36-39)
 RANKS_TIMEOUT_S = 300       # the two spawned ranks, start to end
 
@@ -2530,16 +2546,43 @@ def _require_same(what, got, want):
     return diff
 
 
+COLLECTIVES = ("all_reduce_sum", "broadcast_first", "all_gather_rows")
+
+
+@contextmanager
+def _counted_collectives():
+    """The calls of the sharded solvers' collectives (`distributed`'s
+    three functions) while the block runs, by name."""
+    calls, saved = Counter(), {name: getattr(distributed, name) for name in COLLECTIVES}
+
+    def counted(name):
+        def call(*args):
+            calls[name] += 1
+            return saved[name](*args)
+        return call
+    try:
+        for name in COLLECTIVES:
+            setattr(distributed, name, counted(name))
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(distributed, name, fn)
+
+
 def _sharded_solvers(cfg, m, essential, dev, card, errs):
     """The sharded solvers on the final map of [loop]: at one NCCL rank
     against the unsharded solves bit for bit (the global BA, dense and
-    PCG, and the closure's essential graph), the LM iteration's all-reduce
-    timed; K9 at the shape of one of two landmark blocks beside its bound;
-    two gloo ranks on the card against one rank: within SHARD_TOL after one
-    LM iteration, and after PCG_LM_ITERS within the bounds [loop] holds two
-    float32 solves of this problem to (PCG_POSE_TOL, PCG_POINT_TOL: the
-    ten iterations at low damping magnify the rounding of another
-    summation order, as between PCG and the dense solve)."""
+    PCG, and the closure's essential graph), each timed beside the other
+    and its collectives counted, the LM iteration's all-reduce timed on the
+    card and on the host; K9 at the shape of one of two landmark blocks
+    beside its bound; two gloo ranks on the card against one rank, on the problem with its
+    points in a fixed shuffled order (so both blocks hold live points):
+    within SHARD_TOL after one LM iteration, and after PCG_LM_ITERS within
+    the bounds [loop] holds two float32 solves of this problem to
+    (PCG_POSE_TOL, PCG_POINT_TOL: each block damps its cameras by its own
+    diagonal, so the result depends on the rank count, and ten iterations
+    at low damping magnify the rounding of another summation order, as
+    between PCG and the dense solve)."""
     cam = cfg.camera(dev)
     prob = loop_closing.global_ba_problem(cfg, m)
     fix_scale = cfg.sensor != SENSOR_MONOCULAR
@@ -2561,16 +2604,30 @@ def _sharded_solvers(cfg, m, essential, dev, card, errs):
                 lambda: pose_graph.optimize_pose_graph(essential, 20, fix_scale))}
         out = {}
         for name, (sharded, plain) in solves.items():
-            got, want = sharded(), plain()
+            with _counted_collectives() as calls:
+                got = sharded()
+            want = plain()
             torch.cuda.synchronize()
             res[f"{name}_max_abs_diff"] = _require_same(name, got, want)
-            res[f"{name}_sharded_ms"] = statistics.median(_wall_ms(lambda _: sharded(), [None], 3))
-            res[f"{name}_ms"] = statistics.median(_wall_ms(lambda _: plain(), [None], 3))
+            res[f"{name}_collectives"] = dict(calls)
+            times = {sharded: [], plain: []}
+            for _ in range(3):
+                for fn in times:
+                    times[fn] += _wall_ms(lambda _: fn(), [None])
+            res[f"{name}_sharded_ms"] = statistics.median(times[sharded])
+            res[f"{name}_ms"] = statistics.median(times[plain])
             out[name] = got
         C = prob.poses.shape[0]
+        group = mesh.get_group()
         pack = (torch.ones((6 * C, 6 * C), device=dev), torch.ones((6 * C,), device=dev))
-        res["all_reduce_nccl_ms"] = _event_ms(
-            lambda: distributed.all_reduce_sum(mesh.get_group(), *pack), 20)
+        res["all_reduce_nccl_ms"] = _event_ms(lambda: distributed.all_reduce_sum(group, *pack),
+                                              20)
+        # the host's time per collective, issued back to back: each of the
+        # solves' collectives costs at least this much wall time
+        for key, ts in (("all_reduce_wall_ms", pack), ("all_reduce_one_float_wall_ms",
+                                                        (pack[1][:1],))):
+            res[key] = _wall_ms(lambda _: [distributed.all_reduce_sum(group, *ts)
+                                           for _ in range(50)], [None])[0] / 50
     finally:
         torch.distributed.destroy_process_group()
     log(f"[multi] {card}: the sharded solvers at one NCCL rank equal the unsharded ones bit for "
@@ -2581,7 +2638,9 @@ def _sharded_solvers(cfg, m, essential, dev, card, errs):
         f"{res['pcg_sharded_ms']:.1f} / {res['pcg_ms']:.1f} ms, essential graph "
         f"{res['essential_graph_sharded_ms']:.1f} / {res['essential_graph_ms']:.1f} ms; the "
         f"all-reduce of (S, b_red), {36 * C * C + 6 * C} floats, {res['all_reduce_nccl_ms']:.3f} "
-        f"ms")
+        f"ms on the card, {res['all_reduce_wall_ms']:.3f} ms of host time a call back to back "
+        f"({res['all_reduce_one_float_wall_ms']:.3f} ms for one float); collectives a solve: "
+        + "; ".join(f"{name} {res[f'{name}_collectives']}" for name in solves))
 
     # K9 on one of two landmark blocks: its shape in the two-rank solve
     Q = prob.points.shape[0]
@@ -2606,10 +2665,18 @@ def _sharded_solvers(cfg, m, essential, dev, card, errs):
         f"profiler), bound {bound * 1e3:.2f} us ({by}); equal to its twin "
         f"bit for bit")
 
-    two = _two_ranks(cfg, prob, dev)
-    pv = prob.pt_valid.cpu()
-    ones = {1: schur_ba.solve_ba(cam, prob, cfg.level_sigma2, iters_a=1, iters_b=0,
-                                 robust=False), PCG_LM_ITERS: out["gba"]}
+    # the map's live points fill the first rows of the point axis (all of
+    # them lie in the first of two blocks), so the ranks get the points in a
+    # fixed shuffled order: each block holds about half of them, and a lost
+    # or partial reduction of either rank's part moves the result
+    perm = torch.randperm(Q, generator=torch.Generator().manual_seed(0)).to(dev)
+    shuffled = schur_ba.BAProblem(prob.poses, prob.cam_valid, prob.cam_fixed,
+                                  *(t[perm] for t in prob[3:]))
+    pv = shuffled.pt_valid.cpu()
+    res["live_points_per_block"] = [int(pv[: Q // 2].sum()), int(pv[Q // 2:].sum())]
+    two = _two_ranks(cfg, shuffled, dev)
+    ones = {n: schur_ba.solve_ba(cam, shuffled, cfg.level_sigma2, iters_a=n, iters_b=0,
+                                 robust=False) for n in (1, PCG_LM_ITERS)}
     for n, one in ones.items():
         got = two["res"][n]
         res[f"two_rank_{n}_iters"] = {
@@ -2619,7 +2686,8 @@ def _sharded_solvers(cfg, m, essential, dev, card, errs):
     d1, d10 = res["two_rank_1_iters"], res[f"two_rank_{PCG_LM_ITERS}_iters"]
     res.update({"two_rank_gba_ms": two["solve_ms"], "all_reduce_gloo_ms": two["all_reduce_ms"],
                 "k9_shard": shard})
-    log(f"[multi] {card}: two ranks on the card over gloo (K9 on {Q // 2} points each): the "
+    log(f"[multi] {card}: two ranks on the card over gloo (K9 on {Q // 2} points each, the "
+        f"points shuffled: {res['live_points_per_block']} live in the two blocks): the "
         f"global BA {two['solve_ms']:.1f} ms; against one rank after one LM iteration, poses "
         f"max |diff| {d1['pose_diff']:.3e}, points {d1['point_diff']:.3e} (<= {SHARD_TOL} "
         f"required); after {PCG_LM_ITERS}, poses {d10['pose_diff']:.3e} (<= {PCG_POSE_TOL}), "
@@ -2635,12 +2703,13 @@ def multi_phase(cfg, voc, dev, card, errs, lap):
     """[loop]'s figure eight through the tracking / mapping split at depth
     STREAM_DEPTH (counts set to 0 before, read after) and through the
     stream without it, then the sharded solvers (`_sharded_solvers`) on
-    [loop]'s final map. The split against the stream, as
-    tests/test_pipeline_split.py holds the reference's: at least
-    LOOP_TRACKED_FLOOR of the frames tracked, the ATE within max(3x the
-    stream's, 3 cm) (a stream lap has no reference of its own, ROADMAP
-    Queue 3: its ATE moves with whether a loop closes), the keyframes
-    within MULTI_KF_SLACK of the stream's, every pass adopted, a finite map
+    [loop]'s final map. The split: at least LOOP_TRACKED_FLOOR of the
+    frames tracked, the ATE within max(3x [loop]'s synchronous lap's, 3 cm)
+    (the band of tests/test_pipeline_split.py), the keyframes inserted
+    within MULTI_KF_SLACK of the reference split's on the same frames
+    (REFERENCE_SPLIT: a frame tracked before an adoption sees the map
+    without the pass's points and may ask for another keyframe, so the
+    split inserts more than the stream), every pass adopted, a finite map
     on the card. Returns (launches, the phase's results)."""
     poses, frames = lap["poses"], lap["frames"]
     gt = [(i / cfg.fps, T) for i, T in enumerate(poses)]
@@ -2654,11 +2723,16 @@ def multi_phase(cfg, voc, dev, card, errs, lap):
         traj = s.get_trajectory()
         res[name] = {"fps": len(frames) / lap_s, "tracked": len(traj),
                      "ate_m": trajectory.ate_rmse(traj, gt), "keyframes": s._kf_seq_host,
-                     "loops": s.n_loops_closed, "plain_ms": _kind_ms(times, kinds, "plain"),
+                     "loops": s.n_loops_closed,
+                     "closures": [(c["kf_seq"], c["kf_frame"], c["cand_frame"])
+                                  for c in s.loop_closures],
+                     "plain_ms": _kind_ms(times, kinds, "plain"),
                      "keyframe_ms": _kind_ms(times, kinds, "dispatch"),
                      "adopt_ms": _kind_ms(times, kinds, "adopt"),
                      "calls": dict(Counter(kinds))}
     r, q = res["split"], res["stream"]
+    ref = REFERENCE_SPLIT
+    ref_kf = ref["split"]["keyframes_inserted"]
     r.update({"dispatched": split.n_mapping_dispatched, "adopted": split.n_mapping_adopted,
               "mapping_adopt_wall_ms": split.stage_ms.get("mapping_adopt_wall")})
     log(f"[multi] {card}: the split (depth {STREAM_DEPTH}, the mapping pass on a second stream) "
@@ -2668,13 +2742,18 @@ def multi_phase(cfg, voc, dev, card, errs, lap):
         f"/ {_fmt(q['keyframe_ms'])}, adopting a pass {_fmt(r['adopt_ms'])}; tracked "
         f"{r['tracked']} / {q['tracked']}, ATE {r['ate_m'] * 100:.3f} / {q['ate_m'] * 100:.3f} "
         f"cm ([loop]'s synchronous lap {lap['ate'] * 100:.3f} cm), keyframes {r['keyframes']} / "
-        f"{q['keyframes']}, loops {r['loops']} / {q['loops']}; {r['dispatched']} passes "
+        f"{q['keyframes']}, loops {r['loops']} / {q['loops']} (closures (keyframe sequence, "
+        f"frame, candidate frame) {r['closures']} / {q['closures']}; the reference's split / "
+        f"stream: "
+        f"ATE {ref['split']['ate_m'] * 100:.3f} / {ref['stream']['ate_m'] * 100:.3f} cm, "
+        f"keyframes {ref_kf} / {ref['stream']['keyframes_inserted']}, loops "
+        f"{ref['split']['loops']} / {ref['stream']['loops']}); {r['dispatched']} passes "
         f"dispatched, {r['adopted']} adopted; launches over the split lap {launches}")
     bad = _map_finite(split.m)
     fails = [what for what, ok in (
         ("tracked", r["tracked"] >= LOOP_TRACKED_FLOOR * len(frames)),
-        ("ATE", r["ate_m"] <= max(3 * q["ate_m"], 0.03)),
-        ("keyframes", abs(r["keyframes"] - q["keyframes"]) <= MULTI_KF_SLACK * q["keyframes"]),
+        ("ATE", r["ate_m"] <= max(3 * lap["ate"], 0.03)),
+        ("keyframes", abs(r["keyframes"] - ref_kf) <= MULTI_KF_SLACK * ref_kf),
         ("passes adopted", 0 < r["adopted"] == r["dispatched"]),
         ("mapping_adopt_wall", r["mapping_adopt_wall_ms"] is not None),
         ("map on the card", split.m.kf_pose.device == dev and split.m.pt_pos.device == dev),
@@ -2802,17 +2881,18 @@ def _split_kf(times, metrics, closures=()):
 
 def stereo_phase(voc, dev, card, errs, rgbd_syncs):
     """EVAL.md's block-stereo row through SlamSystem.track_stereo with its
-    defaults (`block_config`, 780 pairs rendered on a thread pool while the
-    system tracks them), then flush(): checked against REFERENCE_STEREO
-    (the same states over the first frames and keyframes there within
-    SYSTEM_KF_SLACK, the frames tracked, the ATE, the loop closures, the
-    keyframe count, a finite map); each frame's K1, K2 and K3 launches (two
-    each: the left and the right image); its host syncs against the RGB-D
-    [loop] lap's; a stream lap at depth STREAM_DEPTH; the stereo matcher on
-    the card against the CPU and K1-K3 of a right image against their twins.
+    defaults (`block_config`, the row's first BLOCK_LAP pairs rendered on a
+    thread pool while the system tracks them), then flush(): checked
+    against REFERENCE_STEREO (the same states over the first frames and
+    keyframes there within SYSTEM_KF_SLACK, the frames tracked, the ATE,
+    the loop closures, the keyframe count, a finite map); each frame's K1,
+    K2 and K3 launches (two each: the left and the right image); its host
+    syncs against the RGB-D [loop] lap's; a stream lap at depth
+    STREAM_DEPTH over the first STREAM_LAP pairs; the stereo matcher on the
+    card against the CPU and K1-K3 of a right image against their twins.
     Counts set to 0 before the lap, read after. Returns (launches, results)."""
     cfg = block_config()
-    poses, pairs = render_block_frames()
+    poses, pairs = render_block_frames(BLOCK_LAP)
     kept = []
 
     def keep(gen):
@@ -2865,7 +2945,7 @@ def stereo_phase(voc, dev, card, errs, rgbd_syncs):
         raise AssertionError(f"[stereo] host syncs per frame: median {_median(plain)} against "
                              f"RGB-D's {_median(rgbd_syncs)}")
 
-    stream = _stream_lap("[stereo]", cfg, voc, kept, poses, dev, ate)
+    stream = _stream_lap("[stereo]", cfg, voc, kept[:STREAM_LAP], poses[:STREAM_LAP], dev, ate)
     # the lap's per-frame times share the host with the renderers: the
     # first STEREO_TIMED pairs again, alone
     alone = []
@@ -3017,10 +3097,10 @@ def mono_phase(voc, dev, card, errs, clean):
     REFERENCE_MONO's runs (the initialization frame, the frames tracked,
     the Sim3-aligned ATE, the keyframe count, a finite map; the loops
     reported); the initialization on the card against the CPU (`mono_parity`);
-    a stream lap at depth STREAM_DEPTH. Timed: track_monocular, an
-    initialization attempt's search, RANSAC and CheckRT, the two-view BA,
-    K4 at the init gate and K9 at C = 2. Counts set to 0 before the lap,
-    read after. Returns (launches, results)."""
+    a stream lap at depth STREAM_DEPTH over the first STREAM_LAP frames.
+    Timed: track_monocular, an initialization attempt's search, RANSAC and
+    CheckRT, the two-view BA, K4 at the init gate and K9 at C = 2. Counts
+    set to 0 before the lap, read after. Returns (launches, results)."""
     cfg = mono_config()
     poses, frames = render_mono_frames(clean)
     rec, times, syncs, closure_nb, states, front = {}, [], [], [], [], []
@@ -3069,7 +3149,7 @@ def mono_phase(voc, dev, card, errs, clean):
         raise AssertionError(f"[mono] K1, K2, K3 launches per frame: {dict(Counter(front))}")
     mono_parity(rec, errs)
 
-    stream = _stream_lap("[mono]", cfg, voc, frames, poses, dev, ate)
+    stream = _stream_lap("[mono]", cfg, voc, frames[:STREAM_LAP], poses[:STREAM_LAP], dev, ate)
 
     parts = {}
     for part, ms in rec["ms"]:

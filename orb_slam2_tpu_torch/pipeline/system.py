@@ -639,18 +639,13 @@ class SlamSystem:
         mapping pass dispatched at the keyframe before."""
         if self._pending_mapping is not None:
             pend, (Tcw_kf, matched_kf) = self._adopt_pending()
-            # the map changes here, not at the dispatch: the frames in
-            # flight tracked against the map before the pass, so their
-            # statistics skip the keyframe decision (without this the split
-            # inserted a keyframe every ~4 frames: 40 against the stream's
-            # 19 on fig8-rgbd, PERF.md section 6)
-            self._kf_blackout_fid = self.frame_id
             if pend["corrected"]:
                 # a correction or a global BA moved the poses: the chain is
                 # stale, so drain it and restart from the keyframe
                 self._drain_pipeline(record_lost=False)
                 self._set_last(pend["f"], Tcw_kf, matched_kf)
                 self._chain = None
+                self._kf_blackout_fid = self.frame_id
                 if not self._pending:
                     # the drain recorded every frame in flight
                     return Tcw_kf
@@ -704,7 +699,11 @@ class SlamSystem:
             ts2, fid2, res2, Tcw2 = newest if newest is not None else (timestamp, fid, res, Tcw)
             if self._mapper is not None:
                 # the split: the pass runs beside the next frames, which
-                # track against the map as it is; the next retire adopts it
+                # track against the map as it is; the next retire adopts it.
+                # Those frames lack the pass's new points and may ask for
+                # another keyframe, as in the JAX split (on fig8-rgbd it
+                # inserts 40 keyframes where its stream inserts 19,
+                # scripts/chip_smoke_reference.py --split-only)
                 self._pending_mapping = self._dispatch_mapping(res2.frame, Tcw2,
                                                                res2.matched_pt, fid2, ts2)
                 Tcw_kf, matched_kf = Tcw2, res2.matched_pt

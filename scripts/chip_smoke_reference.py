@@ -3,7 +3,7 @@
 smoke run), measured on the CPU with the reference package's XLA path.
 
     env JAX_PLATFORMS=cpu python scripts/chip_smoke_reference.py \
-        [--system-only | --loop-only | --stereo-only | --mono-only]
+        [--system-only | --loop-only | --split-only | --stereo-only | --mono-only]
 
 It renders chip_smoke's frames (the reference bench's first N_FRAMES poses,
 640x480, 1000 features, RGB-D), extracts them with the port's front end (as
@@ -40,6 +40,11 @@ for each closure, its keyframe sequence number, the frames of its keyframe
 and candidate and of the candidate's covisible keyframes; the frames
 tracked, the keyframes inserted and the ATE.
 
+`--split-only` gives the `[multi]` phase's (`REFERENCE_SPLIT`): the same
+lap at pipeline depth STREAM_DEPTH, once as the stream and once as the
+tracking / mapping split (`mapping_device`, the second of two virtual CPU
+devices), with the keyframe frames and the states besides.
+
 `--stereo-only` gives the `[stereo]` phase's numbers (`REFERENCE_STEREO`):
 the same lap over chip_smoke's street canyon (`render_block_frames`,
 EVAL.md's block-stereo row, 780 stereo pairs) handed the port's stereo
@@ -60,6 +65,8 @@ import time
 
 import numpy as np
 
+# the tracking / mapping split (--split-only) needs a second device
+os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=2")
 import jax
 import jax.numpy as jnp
 
@@ -247,15 +254,16 @@ def system_laps(jcfg, poses, jf):
     return out
 
 
-def sensor_lap(jcfg, poses, frame_at, key_offset=0):
+def sensor_lap(jcfg, poses, frame_at, key_offset=0, depth=0, mapping_device=None):
     """The reference SlamSystem with its defaults (loop closing on, 4
     amortized GBA chunks, the natural keyframe policy,
     `synth_vocabulary(10, 6)`) over the sequence, handed the port's frames
     (`frame_at(i, init)`: frame i, extracted with the doubled initialization
     budget where init, as a monocular system extracts before it
     initializes), then `flush()`. A monocular run draws its initializer's
-    RANSAC sets from PRNGKey(frame_id + key_offset). Returns the records
-    chip_smoke holds a phase to."""
+    RANSAC sets from PRNGKey(frame_id + key_offset). With depth > 0 the
+    system streams at that depth (with `mapping_device`, the tracking /
+    mapping split). Returns the records chip_smoke holds a phase to."""
     from orb_slam2_tpu.bow import vocabulary as jvoc
     from orb_slam2_tpu.pipeline import loop_closing as jlc
     from orb_slam2_tpu.pipeline import system as jsystem
@@ -265,7 +273,8 @@ def sensor_lap(jcfg, poses, frame_at, key_offset=0):
     voc = jvoc.synth_vocabulary(10, 6)
     jts.full_tracking_step_from_images = \
         lambda cfg, m, f, *rest: jts.full_tracking_step(cfg, m, f, *rest[:-1])
-    s = jsystem.SlamSystem(jcfg, vocabulary=voc)
+    s = jsystem.SlamSystem(jcfg, vocabulary=voc, pipeline_depth=depth,
+                           mapping_device=mapping_device)
     mono = jcfg.sensor == jconfig.SENSOR_MONOCULAR
     closures, detections = [], []
     correct_loop, dispatch, initialize = jlc.correct_loop, jlc.detect_loop_dispatch, \
@@ -296,9 +305,11 @@ def sensor_lap(jcfg, poses, frame_at, key_offset=0):
     try:
         for i in range(len(poses)):
             f = frame_at(i, mono and s.state == jsystem.NOT_INITIALIZED)
-            if s.state != jsystem.OK:
+            if s.state == jsystem.OK and depth > 0:
+                s._track_stream(f, i / jcfg.fps, "rgbd")
+            else:
                 s._flush_pipeline()
-            s._track(f, i / jcfg.fps)
+                s._track(f, i / jcfg.fps)
             states.append(int(s.state))
             if init_frame is None and s.state == jsystem.OK:
                 init_frame = i
@@ -345,7 +356,7 @@ def main():
         tcfg = cs.block_config()
         jcfg = dataclasses.replace(jcfg, sensor=tcfg.sensor, bf=tcfg.bf)
         assert convert.config_from_jax(jcfg) == tcfg
-        poses, pairs = cs.render_block_frames()
+        poses, pairs = cs.render_block_frames(cs.BLOCK_LAP)
         jf = (jax_frame(tframe.make_frame_stereo(torch.from_numpy(l), torch.from_numpy(r), tcfg))
               for l, r in pairs)
         print(f"REFERENCE_STEREO = {sensor_lap(jcfg, poses, lambda i, init: next(jf))}")
@@ -367,11 +378,18 @@ def main():
         print(f"REFERENCE_MONO = {runs}")
         print(f"jax {jax.__version__}, {time.perf_counter() - t0:.0f} s")
         return
-    if "--loop-only" in sys.argv:
+    if "--loop-only" in sys.argv or "--split-only" in sys.argv:
         poses, frames = cs.render_loop_frames()
         jf = [jax_frame(tframe.make_frame_rgbd(torch.from_numpy(g), torch.from_numpy(d), tcfg))
               for g, d in frames]
         print(f"extracted {len(jf)} frames ({time.perf_counter() - t0:.0f} s)", flush=True)
+        if "--split-only" in sys.argv:
+            laps = {name: sensor_lap(jcfg, poses, lambda i, init: jf[i], depth=cs.STREAM_DEPTH,
+                                     mapping_device=md)
+                    for name, md in (("stream", None), ("split", jax.devices()[1]))}
+            print(f"REFERENCE_SPLIT = {laps}")
+            print(f"jax {jax.__version__}, {time.perf_counter() - t0:.0f} s")
+            return
         print(f"REFERENCE_LOOP = {loop_lap(jcfg, poses, jf)}")
         print(f"jax {jax.__version__}, {time.perf_counter() - t0:.0f} s")
         return

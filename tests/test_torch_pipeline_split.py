@@ -1,6 +1,7 @@
 """The port's tracking / mapping split (`SlamSystem(pipeline_depth > 0,
-mapping_device=...)`, `pipeline/system.py`) on the CPU, the counterparts of
-`tests/test_pipeline_split.py`: every keyframe's mapping pass runs on the
+mapping_device=...)`, `pipeline/system.py`) on the CPU, against the JAX
+package's split and against the port's own stream (the counterparts of
+`tests/test_pipeline_split.py`): every keyframe's mapping pass runs on the
 split's worker thread while the stream goes on tracking against the map as
 it was, and the next retire adopts the pass's map. On the CPU the worker
 runs the twins with no CUDA stream (the card's two streams are
@@ -11,51 +12,122 @@ features), 24 frames of `lateral_trajectory` at 8 cm a frame: long enough
 for the natural policy to insert keyframes, short enough for tier-1. At
 10-15 cm a frame the split loses a frame right after a correction: the
 corrected retire restarts tracking from the keyframe's frame, which the
-adoption delay leaves 3-4 frames behind; the reference's split restarts
-there too (ROADMAP Queue 3).
+adoption delay leaves 3-4 frames behind; the reference's split loses the
+same frame (ROADMAP Queue 3).
 
-Bounds, the reference test's: the split's ATE below max(3x the stream's,
-3 cm) (it differs from the stream by the one-event adoption delay, and by
-no keyframe decision on a frame tracked before the adoption), keyframes
-within 3, the map on the tracking device, every dispatched pass adopted.
+Against the reference: the JAX `SlamSystem(pipeline_depth=2,
+mapping_device=jax.devices()[1])` (conftest's virtual CPU devices), handed
+the port's frames through its frame-given path as in
+tests/test_torch_system.py, with and without a correction at an adoption.
+Required: the same state after every call, the same keyframe frames (the
+split inserts one the stream does not: a frame tracked before the adoption
+sees the map without the pass's points), every pass adopted, camera
+centres within tests/test_torch_system.py's 1e-3 m. Against the stream,
+the reference test's bounds: the split's ATE below max(3x the stream's,
+3 cm) (the two differ by the one-event adoption delay), keyframes within
+3, the map on the tracking device.
 """
 import dataclasses
 import sys
 import threading
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from orb_slam2_tpu.pipeline import frame as jframe
+from orb_slam2_tpu.pipeline import system as jsystem
+from orb_slam2_tpu.pipeline import tracking_step as jts
+from orb_slam2_tpu.utils import config as jconfig
+
 from orb_slam2_tpu_torch.ops import cuda_ba, cuda_pose, launch
+from orb_slam2_tpu_torch.pipeline import frame as tframe
 from orb_slam2_tpu_torch.pipeline import loop_closing, system as tsystem
-from orb_slam2_tpu_torch.utils.config import SlamConfig, SENSOR_RGBD, device_table
+from orb_slam2_tpu_torch.utils import convert
+from orb_slam2_tpu_torch.utils.config import device_table
 from orb_slam2_tpu_torch.utils.synthetic import PlaneWorld, lateral_trajectory
 from orb_slam2_tpu_torch.utils.trajectory import ate_rmse
 
 torch.set_num_threads(2)
-N_FRAMES, STEP = 24, 0.08
+N_FRAMES, STEP, DEPTH = 24, 0.08, 2
+CENTRE_TOL = 1e-3           # m, tests/test_torch_system.py's
 
 
 @pytest.fixture(scope="module")
 def seq():
     fx = 300.0
-    cfg = SlamConfig(fx=fx, fy=fx, cx=160.0, cy=120.0, width=320, height=240, n_features=400,
-                     fps=10.0, th_depth=60.0, sensor=SENSOR_RGBD, bf=fx * 0.1, max_keyframes=32,
-                     max_map_points=1 << 13, ba_local_cams=8, ba_fixed_cams=8,
-                     ba_max_points=1 << 10, ba_max_obs=6, max_local_keyframes=16,
-                     max_local_points=1 << 11)
+    jcfg = jconfig.SlamConfig(
+        fx=fx, fy=fx, cx=160.0, cy=120.0, width=320, height=240, n_features=400, fps=10.0,
+        th_depth=60.0, sensor=jconfig.SENSOR_RGBD, bf=fx * 0.1, max_keyframes=32,
+        max_map_points=1 << 13, ba_local_cams=8, ba_fixed_cams=8, ba_max_points=1 << 10,
+        ba_max_obs=6, max_local_keyframes=16, max_local_points=1 << 11, use_pallas=0)
+    cfg = convert.config_from_jax(jcfg)
     world = PlaneWorld(cfg.fx, cfg.fy, cfg.cx, cfg.cy, 320, 240, z0=4.0)
     gt = lateral_trajectory(N_FRAMES, step=STEP, yaw_rate=0.004)
-    return cfg, gt, [world.render_with_depth(T) for T in gt]
+    return cfg, gt, [world.render_with_depth(T) for T in gt], jcfg
 
 
-def _run(cfg, frames, mapping_device=None, loop_closing_on=False):
-    s = tsystem.SlamSystem(cfg, enable_loop_closing=loop_closing_on, pipeline_depth=2,
+def _run(cfg, frames, mapping_device=None, loop_closing_on=False, states=None):
+    s = tsystem.SlamSystem(cfg, enable_loop_closing=loop_closing_on, pipeline_depth=DEPTH,
                            mapping_device=mapping_device, device="cpu")
     for i, (img, depth) in enumerate(frames):
         s.track_rgbd(img, depth, i / cfg.fps)
+        if states is not None:
+            states.append(s.state)
     s.flush()
     return s
+
+
+def _jax_run(jcfg, cfg, frames, loop_closing_on, states, monkeypatch):
+    """The reference's split on the port's frames: its track_rgbd with the
+    frame handed in (the stream's step patched to take the frame as its
+    images)."""
+    monkeypatch.setattr(jts, "full_tracking_step_from_images",
+                        lambda c, m, f, *rest: jts.full_tracking_step(c, m, f, *rest[:-1]))
+    s = jsystem.SlamSystem(jcfg, enable_loop_closing=loop_closing_on, pipeline_depth=DEPTH,
+                           mapping_device=jax.devices()[1])
+    for i, (img, depth) in enumerate(frames):
+        f = jframe.FrameData(**{k: jnp.asarray(v) for k, v in convert.frame_to_numpy(
+            tframe.make_frame_rgbd(torch.from_numpy(img), torch.from_numpy(depth), cfg)).items()})
+        if s.state == jsystem.OK:
+            s._track_stream(f, i / cfg.fps, "rgbd")
+        else:
+            s._flush_pipeline()
+            s._track(f, i / cfg.fps)
+        states.append(s.state)
+    s.flush()
+    return s
+
+
+def _kf_frames(s):
+    return sorted(e["frame"] for e in s.metrics if e.get("kf"))
+
+
+@pytest.mark.parametrize("correction", [False, True], ids=["plain", "correction"])
+def test_split_matches_reference(seq, correction, monkeypatch):
+    """The port's split against the JAX package's on the same frames; with
+    `correction` the periodic global BA every 2 keyframes corrects the poses
+    at adoptions (loop closing on), the reference's drain branch."""
+    cfg, gt, frames, jcfg = seq
+    if correction:
+        cfg = dataclasses.replace(cfg, gba_every_n_kf=2, gba_total_iters=4)
+        jcfg = dataclasses.replace(jcfg, gba_every_n_kf=2, gba_total_iters=4)
+    j_states, t_states = [], []
+    js = _jax_run(jcfg, cfg, frames, correction, j_states, monkeypatch)
+    ts = _run(cfg, frames, mapping_device="cpu", loop_closing_on=correction, states=t_states)
+    assert t_states == j_states and all(st == tsystem.OK for st in t_states), (t_states, j_states)
+    assert _kf_frames(ts) == _kf_frames(js) and len(_kf_frames(ts)) >= 2, (_kf_frames(ts),
+                                                                            _kf_frames(js))
+    assert int(ts.m.n_keyframes) == int(js.m.n_keyframes)
+    np.testing.assert_array_equal(ts.m.kf_frame_id.numpy(), np.asarray(js.m.kf_frame_id))
+    assert ts.n_mapping_adopted == ts.n_mapping_dispatched == len(_kf_frames(ts))
+    assert ts._pending_mapping is None and js._pending_mapping is None
+    tt, jt = ts.get_trajectory(), js.get_trajectory()
+    assert [t for t, _ in tt] == [t for t, _ in jt] and len(tt) == len(gt)
+    dc = max(np.linalg.norm(a[:3, 3] - b[:3, 3]) for (_, a), (_, b) in zip(tt, jt))
+    assert dc <= CENTRE_TOL, dc
 
 
 def _ate(s, cfg, gt):
@@ -65,7 +137,7 @@ def _ate(s, cfg, gt):
 
 
 def test_split_matches_single_device(seq):
-    cfg, gt, frames = seq
+    cfg, gt, frames, _ = seq
     one = _run(cfg, frames)
     two = _run(cfg, frames, mapping_device="cpu")
     ate_one, ate_two = _ate(one, cfg, gt), _ate(two, cfg, gt)
@@ -84,7 +156,7 @@ def test_split_survives_pose_correction(seq, monkeypatch):
     """The periodic global BA every 2 keyframes corrects the poses at an
     adoption: the retire drains the frames in flight, restarts from the
     keyframe and returns its pose (the reference's IndexError guard)."""
-    cfg, gt, frames = seq
+    cfg, gt, frames, _ = seq
     cfg = dataclasses.replace(cfg, gba_every_n_kf=2, gba_total_iters=4)
     calls = []
     run_gba = loop_closing.run_global_ba
