@@ -91,7 +91,8 @@ Phases (each prints its result; any failure exits non-zero):
                of frames 0-30, the keyframes there, the frames tracked, the
                ATE, the closures, the keyframe count); K1, K2 and K3 twice a
                frame; host syncs per frame no more than the [loop] lap's; a
-               depth-3 stream of the first 240 frames; the stereo matcher on the card against the
+               depth-3 stream of the first 240 frames (against the JAX
+               stream, REFERENCE_STREAMS); the stereo matcher on the card against the
                CPU and a right image's K1-K3 against their twins. Timed:
                track_stereo, make_frame_stereo, the matcher, K1-K3 on a
                right image beside their bounds;
@@ -103,7 +104,8 @@ Phases (each prints its result; any failure exits non-zero):
                ATE, the keyframe count); the initialization on the card
                against the CPU with the same draws (SearchForInitialization,
                K4 at its gate and K9 at C = 2 bit for bit, R and t within
-               1e-4); a depth-3 stream of the first 240 frames. Timed:
+               1e-4); a depth-3 stream of the first 240 frames (against
+               three JAX stream runs, REFERENCE_STREAMS). Timed:
                track_monocular, the initialization's search, RANSAC and
                CheckRT, the two-view BA, K4 at the init gate and K9 at
                C = 2 beside their bounds;
@@ -124,7 +126,39 @@ Phases (each prints its result; any failure exits non-zero):
                after ten. Timed: both laps' frames per second and ms per
                call (plain, keyframe, adoption), the solves and their
                collectives, the all-reduces, K9 at the shard's shape beside
-               its bound.
+               its bound;
+11. files    — after [mono]: sequences written to disk in the datasets'
+               layouts (stdlib PNG writer with libpng's adaptive row
+               filters, a settings YAML each) and run through the port's
+               example scripts (`orb_slam2_tpu_torch/examples/`,
+               `main(argv, device)`: SlamSystem as a user constructs it,
+               loop closing on, the vocabulary trained on the fly):
+               tum-rgbd ([system]'s 31 frames, depth as 16-bit PNG at
+               x5000, DepthMapFactor 5000), tum-rgbd-distorted (the same
+               poses through TUM1's fr1 lens), kitti-stereo and
+               euroc-stereo (block-stereo's first 60 pairs; EuRoC with
+               identity rectification blocks, so StereoRectifier runs),
+               tum-mono (fig8-mono's first 90 frames). Checked: every
+               image each driver read equals what was written (gray
+               exactly, depth to its 16-bit value); the decoder named
+               (the native library or the port's own); tum-rgbd,
+               kitti-stereo and tum-mono bit for bit a lap on the decoded
+               arrays held in memory; tum-rgbd, tum-rgbd-distorted and
+               kitti-stereo against the JAX reference on the same decoded
+               frames (REFERENCE_FILES: states, keyframes of the TUM laps
+               within 2, ATE within 2x + 1 cm); euroc-stereo's poses bit
+               for bit kitti-stereo's; tum-mono initialized and tracking
+               95 % of the frames after; the three trajectory files against
+               get_trajectory(); the vocabulary trained and holding the
+               keyframes; save_map / load_map on the card bit for bit, a
+               resume in localization mode within 5 cm with no keyframe
+               inserted, and a relocalization on the loaded map; every
+               kernel but K7 and K4's node form launched by the drivers'
+               mains (counted from 0 around each), K4's node form by the
+               phase (the resume's relocalization). Timed: the decoder on
+               one file of each kind (as written and with filter None), the
+               share of each frame waiting on the loader, track_* from
+               files against in memory, the vocabulary's training.
 The second-to-last line is the kernels' JSON record (K4's two forms apart:
 best_two the window form, best_two_node the node form); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -239,6 +273,20 @@ REFERENCE_MONO = [   # RANSAC keys frame_id + 0, 1, 2
      'ate_m': 0.068624},
     {'loops': 0, 'closures': [], 'tracked': 559, 'keyframes_inserted': 92, 'keyframes': 85,
      'init_frame': 2, 'ate_m': 0.03826}]
+# the depth-3 stream laps of [stereo] and [mono] (their first STREAM_LAP
+# frames): scripts/chip_smoke_reference.py --stream-only (the reference
+# SlamSystem streaming the port's CPU frames; stereo: the states of frames
+# 0-30; mono: RANSAC keys frame_id + k, k < 3)
+REFERENCE_STREAMS = {
+    'stereo': {'loops': 0, 'tracked': 240, 'keyframes_inserted': 16, 'keyframes': 16,
+               'kf_frames': [11, 15, 26, 37, 53, 75, 107, 129, 147, 161, 172, 184, 197, 209,
+                             225], 'states': [1] * 31, 'ate_m': 0.047787},
+    'mono': [{'loops': 0, 'tracked': 239, 'keyframes_inserted': 29, 'keyframes': 28,
+              'init_frame': 2, 'ate_m': 0.021792},
+             {'loops': 0, 'tracked': 239, 'keyframes_inserted': 28, 'keyframes': 27,
+              'init_frame': 2, 'ate_m': 0.012717},
+             {'loops': 0, 'tracked': 239, 'keyframes_inserted': 29, 'keyframes': 28,
+              'init_frame': 2, 'ate_m': 0.014529}]}
 REFERENCE_EVENTS = [
     [3, 186, 0, 0, 1186, 2], [2, 295, 136, 0, 1138, 3], [3, 331, 150, 0, 1193, 4],
     [5, 341, 226, 0, 1247, 5], [3, 345, 274, 0, 1365, 6], [4, 331, 293, 0, 1514, 7],
@@ -2842,26 +2890,67 @@ def _stereo_matches_parity(cfg, pair, dev, what):
     return args
 
 
-def _stream_lap(tag, cfg, voc, frames, poses, dev, sync_ate):
+def _stream_lap(tag, cfg, voc, frames, poses, dev, sync_ate, ref):
     """A fresh system streaming the frames at depth STREAM_DEPTH, then
-    flush(): at least LOOP_TRACKED_FLOOR of the frames tracked, the ATE
-    (Sim3-aligned for a monocular system) within max(3x the synchronous
-    lap's, 3 cm), a finite map. Returns its records."""
+    flush(), held to the JAX stream on the same frames (`ref`, from
+    REFERENCE_STREAMS) as [system]'s stream is: a stereo lap the same
+    states over the first SEQ_FRAMES_CHECKED frames and its keyframes there
+    within SYSTEM_KF_SLACK, the frames tracked, the keyframe count, the ATE
+    within 2x the reference's + 1 cm; a monocular lap (a list of the
+    reference's runs, RANSAC keys apart) its initialization frame, keyframe
+    count and ATE (Sim3-aligned) against the runs'. Besides, as before, at
+    least LOOP_TRACKED_FLOOR of the frames tracked, the ATE within max(3x
+    the synchronous lap's, 3 cm), a finite map. Returns its records."""
+    states = []
     t0 = time.perf_counter()
-    st = _loop_lap(cfg, voc, frames, dev, depth=STREAM_DEPTH)
+    st = _loop_lap(cfg, voc, frames, dev, depth=STREAM_DEPTH, states=states)
     stream_s = time.perf_counter() - t0
     traj = st.get_trajectory()
+    mono = cfg.sensor == SENSOR_MONOCULAR
     ate = trajectory.ate_rmse(traj, [(i / cfg.fps, T) for i, T in enumerate(poses)],
-                              with_scale=cfg.sensor == SENSOR_MONOCULAR)
+                              with_scale=mono)
+    kf = sorted(e["frame"] for e in st.metrics if e.get("kf"))
+    n_kf = int(st.m.n_keyframes)
     res = {"stream_depth": STREAM_DEPTH, "stream_fps": len(poses) / stream_s,
-           "stream_tracked": len(traj), "stream_ate_m": ate, "stream_loops": st.n_loops_closed}
+           "stream_tracked": len(traj), "stream_ate_m": ate, "stream_loops": st.n_loops_closed,
+           "stream_keyframes": n_kf}
+    refs = ref if mono else [ref]
     log(f"{tag} stream (depth {STREAM_DEPTH}): {len(traj)} of {len(poses)} frames tracked, "
-        f"{st.n_loops_closed} loops closed, ATE {ate * 100:.3f} cm, "
+        f"{st.n_loops_closed} loops closed, {n_kf} keyframes (the JAX stream "
+        f"{[r['keyframes'] for r in refs]}), ATE {ate * 100:.3f} cm (the JAX stream "
+        f"{[round(r['ate_m'] * 100, 3) for r in refs]} cm), keyframes at {kf[:12]}"
+        f"{'...' if len(kf) > 12 else ''} (the JAX stream "
+        f"{[r['kf_frames'][:12] for r in refs] if not mono else '-'}), "
         f"{res['stream_fps']:.2f} frames per second over the lap and the flush")
     bad = _map_finite(st.m)
     if bad or len(traj) < LOOP_TRACKED_FLOOR * len(poses) or not ate <= max(3 * sync_ate, 0.03):
         raise AssertionError(f"{tag} stream: {len(traj)} frames tracked, ATE {ate:.4f} m (the "
                              f"synchronous lap's {sync_ate:.4f} m), non-finite {bad}")
+    r_kf = [r["keyframes"] for r in refs]
+    if not (1 - KF_COUNT_SLACK) * min(r_kf) <= n_kf <= (1 + KF_COUNT_SLACK) * max(r_kf):
+        raise AssertionError(f"{tag} stream: {n_kf} keyframes, the JAX stream {r_kf}")
+    if not ate <= 2 * max(r["ate_m"] for r in refs) + 0.01:
+        raise AssertionError(f"{tag} stream: ATE {ate:.4f} m > 2 x the JAX stream's "
+                             f"{max(r['ate_m'] for r in refs):.4f} m + 1 cm")
+    if mono:
+        init = states.index(system.OK) if system.OK in states else None
+        r_init = [r["init_frame"] for r in refs]
+        res["stream_init_frame"] = init
+        if init is None or not min(r_init) - MONO_INIT_SLACK <= init <= \
+                max(r_init) + MONO_INIT_SLACK:
+            raise AssertionError(f"{tag} stream: initialized at {init}, the JAX stream at "
+                                 f"{r_init}")
+    else:
+        n = SEQ_FRAMES_CHECKED
+        kf_n, ref_kf_n = [k for k in kf if k < n], [k for k in ref["kf_frames"] if k < n]
+        if states[:n] != ref["states"][:n] or len(kf_n) != len(ref_kf_n) or any(
+                abs(a - b) > SYSTEM_KF_SLACK for a, b in zip(kf_n, ref_kf_n)):
+            raise AssertionError(f"{tag} stream: frames 0-{n - 1} states {states[:n]}, "
+                                 f"keyframes {kf_n}; the JAX stream's {ref['states'][:n]}, "
+                                 f"{ref_kf_n}")
+        if len(traj) < ref["tracked"] - TRACKED_SLACK * len(poses):
+            raise AssertionError(f"{tag} stream: {len(traj)} frames tracked, the JAX stream "
+                                 f"{ref['tracked']}")
     return res
 
 
@@ -2945,7 +3034,8 @@ def stereo_phase(voc, dev, card, errs, rgbd_syncs):
         raise AssertionError(f"[stereo] host syncs per frame: median {_median(plain)} against "
                              f"RGB-D's {_median(rgbd_syncs)}")
 
-    stream = _stream_lap("[stereo]", cfg, voc, kept[:STREAM_LAP], poses[:STREAM_LAP], dev, ate)
+    stream = _stream_lap("[stereo]", cfg, voc, kept[:STREAM_LAP], poses[:STREAM_LAP], dev, ate,
+                         REFERENCE_STREAMS["stereo"])
     # the lap's per-frame times share the host with the renderers: the
     # first STEREO_TIMED pairs again, alone
     alone = []
@@ -3149,7 +3239,8 @@ def mono_phase(voc, dev, card, errs, clean):
         raise AssertionError(f"[mono] K1, K2, K3 launches per frame: {dict(Counter(front))}")
     mono_parity(rec, errs)
 
-    stream = _stream_lap("[mono]", cfg, voc, frames[:STREAM_LAP], poses[:STREAM_LAP], dev, ate)
+    stream = _stream_lap("[mono]", cfg, voc, frames[:STREAM_LAP], poses[:STREAM_LAP], dev, ate,
+                         REFERENCE_STREAMS["mono"])
 
     parts = {}
     for part, ms in rec["ms"]:
@@ -3189,6 +3280,631 @@ def mono_phase(voc, dev, card, errs, clean):
         f"{[round(t, 2) for t in parts.get('two_view_ba', [])]} ms; host syncs per frame after "
         f"the initialization without a keyframe: median {_median(after)}, max {max(after)}")
     return launches, res
+
+
+# ---------------------------------------------------------------------------
+# [files]: sequences on disk through the port's example scripts
+# ---------------------------------------------------------------------------
+
+FILES_STEREO_PAIRS = 60     # [files]: block-stereo's first pairs, KITTI and EuRoC layouts
+FILES_MONO_FRAMES = 90      # [files]: fig8-mono's first frames, TUM monocular layout
+TUM_DEPTH_FACTOR = 5000.0   # TUM's DepthMapFactor: 16-bit depth PNG units per metre
+TUM_DEPTH_LATE_S = 0.005    # depth timestamps after the rgb ones (associate_tum pairs them)
+EUROC_T0_NS = 1403636579763555584   # EuRoC MH_01's first cam0 timestamp
+TUM1_DISTORTION = dict(k1=0.262383, k2=-0.953104, p1=-0.005358, p2=0.002628, k3=1.163314)
+FILES_MONO_TRACKED_FLOOR = 0.95     # [files] tum-mono: frames tracked after initialization
+RESUME_TOL_M = 0.05         # a resumed or relocalized camera centre (tests/test_checkpoint.py)
+TRAJ_FILE_TOL = 1e-6        # the example script's trajectory files against get_trajectory()
+FILES_KF_CHECKED = ("tum-rgbd", "tum-rgbd-distorted")   # keyframe frames held to the reference
+FILES_PNG_FILTERS = "adaptive"  # the row filters libpng (so cv::imwrite) chooses
+# kernels the drivers' laps need not launch: K7 is on no call chain; K4's node
+# form runs where tracking falls back to the reference keyframe, relocalizes
+# or closes a loop, which no lap does (the phase's resume relocalizes)
+FILES_OFF_DRIVERS = {
+    "pose_normal_eqs": "no call chain of the drivers reaches it",
+    "best_two_node": "no driver lap falls back to the reference keyframe, relocalizes or "
+                     "closes a loop: the [files] phase's node-form launches are the resume's "
+                     "relocalization on the loaded map (files_resume_launches)"}
+# What the reference (orb_slam2_tpu, XLA path) gives on the decoded files
+# handed the port's CPU frames: `scripts/chip_smoke_reference.py --files-only`
+# (its SlamSystem with its defaults and the vocabulary trained on the fly,
+# as the example scripts construct it; depth_map_factor 1/5000 set in code): the
+# state after every frame, the keyframe frames and the ATE.
+REFERENCE_FILES = {
+    'tum-rgbd': {'states': [1] * 31, 'kf_frames': [8, 9, 12, 15, 19, 26], 'tracked': 31,
+                 'keyframes': 7, 'loops': 0, 'ate_m': 0.011376},
+    'tum-rgbd-distorted': {'states': [1] * 31, 'kf_frames': [7, 8, 11, 14, 19, 28],
+                           'tracked': 31, 'keyframes': 7, 'loops': 0, 'ate_m': 0.012344},
+    'kitti-stereo': {'states': [1] * 60, 'kf_frames': [9, 10, 17, 23, 32, 43, 58],
+                     'tracked': 60, 'keyframes': 8, 'loops': 0, 'ate_m': 0.006987}}
+
+
+def write_png(path, img, filters=0, level=1):
+    """A PNG of `img` with the standard library (zlib, struct): (H, W) uint8
+    or uint16 gray, or (H, W, 3) uint8 RGB. filters: the row filter of every
+    row (0-4: None, Sub, Up, Average, Paeth), "cycle" (row y gets y % 5) or
+    "adaptive" (each row the filter whose bytes, read as signed, have the
+    least absolute sum: libpng's default choice, so OpenCV's imwrite's);
+    level: zlib's (1, the fastest: the smoke writes ~450 frames). Returns
+    the rows of each filter (5,)."""
+    import struct
+    import zlib
+    a = np.ascontiguousarray(img)
+    h, w = a.shape[:2]
+    ch = 1 if a.ndim == 2 else a.shape[2]
+    if a.dtype == np.uint16:
+        bits, rows = 16, a.astype(">u2").view(np.uint8).reshape(h, -1)
+    elif a.dtype == np.uint8:
+        bits, rows = 8, a.reshape(h, -1)
+    else:
+        raise ValueError(f"write_png: {a.dtype} samples")
+    bpp = ch * bits // 8
+    raw = rows.astype(np.int16)
+    left, up, ul = (np.zeros_like(raw) for _ in range(3))
+    left[:, bpp:], up[1:], ul[1:, bpp:] = raw[:, :-bpp], raw[:-1], raw[:-1, :-bpp]
+    p = left + up - ul
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+    cand = np.stack([(raw - pred) % 256 for pred in (0, left, up, (left + up) // 2, paeth)])
+    if filters == "adaptive":
+        kinds = np.minimum(cand, 256 - cand).sum(-1).argmin(0)
+    else:
+        kinds = np.arange(h) % 5 if filters == "cycle" else np.full(h, filters)
+    out = np.empty((h, rows.shape[1] + 1), np.uint8)
+    out[:, 0] = kinds
+    out[:, 1:] = cand[kinds, np.arange(h)]
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + \
+            struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+            ">IIBBBBB", w, h, bits, {1: 0, 3: 2}[ch], 0, 0, 0)) +
+            chunk(b"IDAT", zlib.compress(out.tobytes(), level)) + chunk(b"IEND", b""))
+    return np.bincount(kinds, minlength=5)
+
+
+def _settings(path, cfg, depth_factor=None, stereo_rect=False):
+    """A settings YAML in the reference's format (`Examples/*/*.yaml`) for
+    `cfg`'s camera and extractor; with stereo_rect, LEFT. / RIGHT. blocks of
+    the identity rectification (D = 0, R = I, P = K)."""
+    def mat(rows, cols, data):
+        return (f" !!opencv-matrix\n   rows: {rows}\n   cols: {cols}\n   dt: d\n"
+                f"   data: [{', '.join(repr(float(v)) for v in data)}]")
+    lines = ["%YAML:1.0", ""]
+    for key in ("fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2", "k3"):
+        lines.append(f"Camera.{key}: {getattr(cfg, key)!r}")
+    lines += [f"Camera.width: {cfg.width}", f"Camera.height: {cfg.height}",
+              f"Camera.fps: {cfg.fps!r}", "Camera.RGB: 1", f"ThDepth: {cfg.th_depth!r}"]
+    if cfg.bf:
+        lines.append(f"Camera.bf: {cfg.bf!r}")
+    if depth_factor is not None:
+        lines.append(f"DepthMapFactor: {depth_factor!r}")
+    lines += [f"ORBextractor.nFeatures: {cfg.n_features}",
+              f"ORBextractor.scaleFactor: {cfg.scale_factor!r}",
+              f"ORBextractor.nLevels: {cfg.n_levels}",
+              f"ORBextractor.iniThFAST: {cfg.ini_th_fast}",
+              f"ORBextractor.minThFAST: {cfg.min_th_fast}"]
+    if stereo_rect:
+        K = [cfg.fx, 0.0, cfg.cx, 0.0, cfg.fy, cfg.cy, 0.0, 0.0, 1.0]
+        for side in ("LEFT", "RIGHT"):
+            lines += [f"{side}.height: {cfg.height}", f"{side}.width: {cfg.width}",
+                      f"{side}.D:{mat(1, 5, [0.0] * 5)}", f"{side}.K:{mat(3, 3, K)}",
+                      f"{side}.R:{mat(3, 3, np.eye(3).ravel())}",
+                      f"{side}.P:{mat(3, 4, K[:3] + [0.0] + K[3:6] + [0.0] + K[6:] + [0.0])}"]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def distort_frame(gray, depth, cfg_distorted):
+    """The pinhole render (gray, depth) as a camera with cfg_distorted's
+    lens sees it: each pixel samples the render at its undistorted position
+    (`undistort_pixels`), gray bilinear (rounded to uint8), depth nearest."""
+    from orb_slam2_tpu_torch.geometry.camera import undistort_pixels
+    h, w = gray.shape
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    uv = undistort_pixels(cfg_distorted.camera(device="cpu"),
+                          torch.from_numpy(np.stack([xx, yy], -1))).numpy()
+    x, y = uv[..., 0], uv[..., 1]
+    x0 = np.clip(np.floor(x).astype(np.int64), 0, w - 2)
+    y0 = np.clip(np.floor(y).astype(np.int64), 0, h - 2)
+    ax, ay = np.clip(x - x0, 0, 1), np.clip(y - y0, 0, 1)
+    g = gray.astype(np.float32)
+    out = ((1 - ay) * ((1 - ax) * g[y0, x0] + ax * g[y0, x0 + 1])
+           + ay * ((1 - ax) * g[y0 + 1, x0] + ax * g[y0 + 1, x0 + 1]))
+    xn = np.clip(np.round(x).astype(np.int64), 0, w - 1)
+    yn = np.clip(np.round(y).astype(np.int64), 0, h - 1)
+    return np.clip(np.round(out), 0, 255).astype(np.uint8), depth[yn, xn], (x, y)
+
+
+def _depth_png(depth):
+    return np.clip(np.round(depth * TUM_DEPTH_FACTOR), 0, 65535).astype(np.uint16)
+
+
+def write_file_sequences(root, rgbd=None, mono_clean=None):
+    """Write the [files] phase's sequences under `root`, in the datasets'
+    own layouts, with a settings YAML each. rgbd: (poses, frames) of
+    `render_frames()` (rendered here when None); mono_clean: the figure
+    eight's first FILES_MONO_FRAMES clean renders (`render_loop_clean`'s
+    triple; rendered when None). Every PNG with FILES_PNG_FILTERS' row
+    filters. Returns {lap: dict(dir, settings, sensor, gt: [(timestamp,
+    T_wc)], example, argv, written: each frame's images as its files hold
+    them (the RGB PNG's gray, depth in 16-bit units), filter_rows: the rows
+    of all laps by filter)}; the laps:
+    - tum-rgbd: rgb/ (gray as 8-bit RGB), depth/ (16-bit at x5000), rgb.txt,
+      depth.txt (5 ms late, one extra depth entry with no rgb partner);
+    - tum-rgbd-distorted: the same poses through TUM1's fr1 lens;
+    - kitti-stereo: image_0/, image_1/, times.txt (block-stereo's first
+      FILES_STEREO_PAIRS pairs, uint8);
+    - euroc-stereo: the same pairs, mav0/cam{0,1}/data.csv + data/<ns>.png,
+      identity rectification blocks;
+    - tum-mono: rgb/, rgb.txt (fig8-mono's first FILES_MONO_FRAMES, uint8)."""
+    cfg = bench_config()
+    fps = cfg.fps
+    poses, frames = render_frames() if rgbd is None else rgbd
+    laps = {}
+    from concurrent.futures import ThreadPoolExecutor
+    # zlib and numpy's whole-image operations release the GIL
+    pool = ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1))
+    written = []
+
+    def png(path, a):
+        written.append(pool.submit(write_png, path, a, FILES_PNG_FILTERS))
+
+    def tum_rgbd(name, cfg_lap, images):
+        d = os.path.join(root, name)
+        os.makedirs(os.path.join(d, "rgb"))
+        os.makedirs(os.path.join(d, "depth"))
+        rgb_txt, depth_txt = ["# color images"], ["# depth maps"]
+        for i, (gray, depth) in enumerate(images):
+            ts = f"{i / fps:.6f}"
+            png(os.path.join(d, "rgb", f"{ts}.png"), np.repeat(gray[..., None], 3, -1))
+            dts = f"{i / fps + TUM_DEPTH_LATE_S:.6f}"
+            png(os.path.join(d, "depth", f"{dts}.png"), _depth_png(depth))
+            rgb_txt.append(f"{ts} rgb/{ts}.png")
+            depth_txt.append(f"{dts} depth/{dts}.png")
+        extra = f"{(len(images) + 3) / fps:.6f}"    # a depth map with no rgb partner
+        png(os.path.join(d, "depth", f"{extra}.png"), _depth_png(images[-1][1]))
+        depth_txt.append(f"{extra} depth/{extra}.png")
+        for fname, lines in (("rgb.txt", rgb_txt), ("depth.txt", depth_txt)):
+            with open(os.path.join(d, fname), "w") as f:
+                f.write("\n".join(lines) + "\n")
+        _settings(os.path.join(d, "settings.yaml"), cfg_lap, depth_factor=TUM_DEPTH_FACTOR)
+        laps[name] = dict(dir=d, settings=os.path.join(d, "settings.yaml"), sensor=SENSOR_RGBD,
+                          gt=[(float(f"{i / fps:.6f}"), T) for i, T in enumerate(poses)],
+                          example="rgbd_tum", written=[(g, _depth_png(dp)) for g, dp in images])
+
+    tum_rgbd("tum-rgbd", cfg, frames)
+    cfg_d = dataclasses.replace(cfg, **TUM1_DISTORTION)
+    tum_rgbd("tum-rgbd-distorted", cfg_d, [distort_frame(g, d, cfg_d)[:2] for g, d in frames])
+
+    scfg = block_config()
+    spose, pairs = render_block_frames(FILES_STEREO_PAIRS)
+    q = lambda x: np.clip(np.round(x), 0, 255).astype(np.uint8)  # noqa: E731
+    pairs = [(q(l), q(r)) for l, r in pairs]
+    d = os.path.join(root, "kitti-stereo")
+    for cam in ("image_0", "image_1"):
+        os.makedirs(os.path.join(d, cam))
+    for i, (l, r) in enumerate(pairs):
+        png(os.path.join(d, "image_0", f"{i:06d}.png"), l)
+        png(os.path.join(d, "image_1", f"{i:06d}.png"), r)
+    with open(os.path.join(d, "times.txt"), "w") as f:
+        f.write("".join(f"{i / fps:.6e}\n" for i in range(len(pairs))))
+    _settings(os.path.join(d, "settings.yaml"), scfg)
+    laps["kitti-stereo"] = dict(dir=d, settings=os.path.join(d, "settings.yaml"),
+                                sensor=SENSOR_STEREO, example="stereo_kitti", written=pairs,
+                                gt=[(float(f"{i / fps:.6e}"), T) for i, T in enumerate(spose)])
+    d = os.path.join(root, "euroc-stereo")
+    ns = [EUROC_T0_NS + round(i * 1e9 / fps) for i in range(len(pairs))]
+    for k, cam in enumerate(("cam0", "cam1")):
+        os.makedirs(os.path.join(d, "mav0", cam, "data"))
+        for t, pair in zip(ns, pairs):
+            png(os.path.join(d, "mav0", cam, "data", f"{t}.png"), pair[k])
+        with open(os.path.join(d, "mav0", cam, "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n" + "".join(f"{t},{t}.png\n" for t in ns))
+    _settings(os.path.join(d, "settings.yaml"), scfg, stereo_rect=True)
+    laps["euroc-stereo"] = dict(dir=d, settings=os.path.join(d, "settings.yaml"),
+                                sensor=SENSOR_STEREO, example="stereo_euroc", written=pairs,
+                                gt=[(t * 1e-9, T) for t, T in zip(ns, spose)])
+
+    mcfg = mono_config()
+    if mono_clean is None:
+        mono_clean = render_loop_clean(FILES_MONO_FRAMES)
+    mposes, mframes = render_mono_frames(mono_clean)
+    d = os.path.join(root, "tum-mono")
+    os.makedirs(os.path.join(d, "rgb"))
+    lines = ["# color images"]
+    mono_written = [(q(img),) for img in mframes]
+    for i, (img,) in enumerate(mono_written):
+        ts = f"{i / fps:.6f}"
+        png(os.path.join(d, "rgb", f"{ts}.png"), img)
+        lines.append(f"{ts} rgb/{ts}.png")
+    with open(os.path.join(d, "rgb.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    _settings(os.path.join(d, "settings.yaml"), mcfg)
+    laps["tum-mono"] = dict(dir=d, settings=os.path.join(d, "settings.yaml"),
+                            sensor=SENSOR_MONOCULAR, example="mono_tum", written=mono_written,
+                            gt=[(float(f"{i / fps:.6f}"), T) for i, T in enumerate(mposes)])
+    with pool:
+        rows = sum(f.result() for f in written).tolist()
+    for name, lap in laps.items():
+        lap["argv"] = [lap["settings"], lap["dir"]] + \
+            ([""] if lap["example"] == "rgbd_tum" else []) + [os.path.join(root, name)]
+        lap["filter_rows"] = rows
+    return laps
+
+
+def decoded_sequence(lap):
+    """The lap's frames as the port's dataset decodes them, and the
+    decoder's name: [(timestamp, *images)]."""
+    from orb_slam2_tpu_torch.geometry.rectify import StereoRectifier
+    from orb_slam2_tpu_torch.utils import datasets
+    d = lap["dir"]
+    ds = {"rgbd_tum": lambda: datasets.TumRGBD(d), "mono_tum": lambda: datasets.TumMonocular(d),
+          "stereo_kitti": lambda: datasets.KittiStereo(d),
+          "stereo_euroc": lambda: datasets.EurocStereo(
+              d, rectifier=StereoRectifier.from_settings(lap["settings"]))}[lap["example"]]()
+    with ds:
+        return list(ds), ds.decoder
+
+
+def _files_track(s, frame):
+    """The example script's call on one decoded frame (timestamp, *images)."""
+    return _track_frame(s, frame[1] if s.cfg.sensor == SENSOR_MONOCULAR else frame[1:], frame[0])
+
+
+def _memory_lap(cfg, frames, dev):
+    """A fresh SlamSystem as the example scripts construct it, over decoded frames
+    held in memory: returns (system, states, ms per call)."""
+    s = system.SlamSystem(cfg, device=dev)
+    states, times = [], []
+    for frame in frames:
+        t0 = time.perf_counter()
+        _files_track(s, frame)
+        times.append((time.perf_counter() - t0) * 1e3)
+        states.append(int(s.state))
+    torch.cuda.synchronize()
+    return s, states, times
+
+
+def _same_run(tag, a, a_states, b, b_states, timestamps=True):
+    """Two systems' runs bit for bit: the state after every call, the
+    keyframe frames, and every trajectory pose (with its timestamp)."""
+    ka = sorted(e["frame"] for e in a.metrics if e.get("kf"))
+    kb = sorted(e["frame"] for e in b.metrics if e.get("kf"))
+    ta, tb = a.get_trajectory(), b.get_trajectory()
+    same = a_states == b_states and ka == kb and len(ta) == len(tb) and all(
+        np.array_equal(x[1], y[1]) and (not timestamps or x[0] == y[0]) for x, y in zip(ta, tb))
+    if not same:
+        raise AssertionError(f"{tag}: states {a_states} / {b_states}, keyframes {ka} / {kb}, "
+                             f"{len(ta)} / {len(tb)} poses")
+    return ka
+
+
+def _trajectory_files(tag, s, prefix):
+    """The three files run_sequence wrote against the system's own records."""
+    traj, kft = s.get_trajectory(), s.keyframe_trajectory()
+    err = 0.0
+    for path, want in ((prefix + "_FrameTrajectory_TUM.txt", traj),
+                       (prefix + "_KeyFrameTrajectory_TUM.txt", kft)):
+        back = trajectory.load_tum(path)
+        if len(back) != len(want):
+            raise AssertionError(f"{tag} {path}: {len(back)} of {len(want)} poses")
+        for (t0, T0), (t1, T1) in zip(want, back):
+            err = max(err, abs(t0 - t1), float(np.abs(T0 - T1).max()))
+    kitti = np.loadtxt(prefix + "_CameraTrajectory_KITTI.txt", ndmin=2)
+    if kitti.shape != (len(traj), 12):
+        raise AssertionError(f"{tag} KITTI file: {kitti.shape}")
+    if traj:
+        err = max(err, float(np.abs(kitti - np.stack([T[:3, :4].ravel() for _, T in traj]))
+                             .max()))
+    if not err <= TRAJ_FILE_TOL:
+        raise AssertionError(f"{tag}: trajectory files {err:.3g} from get_trajectory()")
+    return err
+
+
+def _reference_check(tag, name, states, s, gt, sensor):
+    """A lap against REFERENCE_FILES[name]: the same states, keyframe frames
+    within SYSTEM_KF_SLACK (the TUM laps), ATE <= 2x the reference's + 1
+    cm, a finite map."""
+    ref = REFERENCE_FILES[name]
+    ate = trajectory.ate_rmse(s.get_trajectory(), gt, with_scale=sensor == SENSOR_MONOCULAR)
+    kf = sorted(e["frame"] for e in s.metrics if e.get("kf"))
+    log(f"{tag} {name}: states against the reference's {'equal' if states == ref['states'] else 'DIFFERENT'}; "
+        f"keyframes at {kf} (reference {ref['kf_frames']}); ATE {ate * 100:.3f} cm (reference "
+        f"{ref['ate_m'] * 100:.3f} cm)")
+    if states != ref["states"]:
+        raise AssertionError(f"{tag} {name}: states {states} != the reference's {ref['states']}")
+    if name in FILES_KF_CHECKED and (len(kf) != len(ref["kf_frames"]) or any(
+            abs(a - b) > SYSTEM_KF_SLACK for a, b in zip(kf, ref["kf_frames"]))):
+        raise AssertionError(f"{tag} {name}: keyframes at {kf}, the reference's at "
+                             f"{ref['kf_frames']}")
+    if not ate <= 2 * ref["ate_m"] + 0.01:
+        raise AssertionError(f"{tag} {name}: ATE {ate:.4f} m > 2 x the reference's "
+                             f"{ref['ate_m']:.4f} m + 1 cm")
+    bad = _map_finite(s.m)
+    if bad:
+        raise AssertionError(f"{tag} {name}: non-finite {bad} in the map")
+    return ate
+
+
+def _resume(tag, cfg, s, frames, gt, dev, path):
+    """save_map after the lap, load_map on the card (every field bit for
+    bit against the saved map with its derived caches rebuilt, as load_map
+    rebuilds them), then a fresh system in localization mode on the loaded map:
+    seeded at the newest keyframe's frame (tests/test_checkpoint.py:40-69)
+    it tracks the next frame within RESUME_TOL_M and inserts no keyframe;
+    kidnapped (state LOST) it relocalizes a mapped frame within
+    RESUME_TOL_M. Returns the numbers."""
+    from orb_slam2_tpu_torch.utils import checkpoint
+    t0 = time.perf_counter()
+    checkpoint.save_map(path, s.m, extra=dict(frame_id=s.frame_id))
+    m2, extra = checkpoint.load_map(path, device=dev)
+    io_ms = (time.perf_counter() - t0) * 1e3
+    saved = mapstate.refresh_obs_table(s.m)    # load_map rebuilds the derived caches
+    differ = [n for n in mapstate.MapState._fields
+              if not torch.equal(getattr(saved, n), getattr(m2, n))]
+    if differ or int(extra["frame_id"]) != s.frame_id:
+        raise AssertionError(f"{tag} load_map: fields {differ} differ from the saved map")
+    s2 = system.SlamSystem(cfg, vocabulary=s.voc, device=dev)
+    s2.m = m2
+    s2.db = s2._empty_db()
+    valid = np.nonzero(m2.kf_valid.cpu().numpy())[0]
+    for k in valid:
+        s2.db = s2.db.add(int(k), s2._bow_vec(m2.kf_desc[int(k)], m2.kf_feat_valid[int(k)]))
+    s2.activate_localization_mode()
+    fid = m2.kf_frame_id.cpu().numpy()
+    kf = int(valid[np.argmax(fid[valid])])
+    i = int(fid[kf])
+    nxt = i + 1 if i + 1 < len(frames) else i - 1
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    s2.state, s2.ref_kf = system.OK, kf
+    s2._set_last(make_frame_rgbd(up(frames[i][1]), up(frames[i][2]), cfg), m2.kf_pose[kf],
+                 m2.kf_obs[kf])
+    n_kf = int(m2.n_keyframes)
+    T = s2.track_rgbd(frames[nxt][1], frames[nxt][2], frames[nxt][0])
+    err = None if T is None else _centre_error(torch.from_numpy(T), gt[0][1], gt[nxt][1])
+    if T is None or not err <= RESUME_TOL_M or int(s2.m.n_keyframes) != n_kf:
+        raise AssertionError(f"{tag} resume: frame {nxt} from keyframe {kf} (frame {i}): "
+                             f"centre error {err}, keyframes {int(s2.m.n_keyframes)} of {n_kf}")
+    s2.state = system.LOST
+    k = KIDNAP_POSE
+    t0 = time.perf_counter()
+    T = s2.track_rgbd(frames[k][1], frames[k][2], frames[k][0] + 99.0)
+    reloc_ms = (time.perf_counter() - t0) * 1e3
+    rerr = None if T is None else _centre_error(torch.from_numpy(T), gt[0][1], gt[k][1])
+    if T is None or not rerr <= RESUME_TOL_M or int(s2.m.n_keyframes) != n_kf:
+        raise AssertionError(f"{tag} resume: relocalizing frame {k} on the loaded map: centre "
+                             f"error {rerr}, keyframes {int(s2.m.n_keyframes)} of {n_kf}")
+    log(f"{tag} checkpoint: save_map / load_map of {n_kf} keyframes and {int(m2.n_points)} "
+        f"points in {io_ms:.1f} ms ({os.path.getsize(path) / 1e6:.2f} MB), every field bit for "
+        f"bit; resumed in localization mode at keyframe {kf} (frame {i}): frame {nxt} tracked "
+        f"{err * 100:.3f} cm from the truth, no keyframe inserted; kidnapped, frame {k} "
+        f"relocalized on the loaded map {rerr * 100:.3f} cm from the truth in {reloc_ms:.1f} ms")
+    return dict(save_load_ms=io_ms, resume_err_m=err, reloc_err_m=rerr, reloc_ms=reloc_ms,
+                checkpoint_mb=os.path.getsize(path) / 1e6)
+
+
+@contextmanager
+def _driver_records(module):
+    """The driver module's `run_dataset` wrapped while the block runs: the
+    records of the driver's own loop (its decoder, the frames its dataset
+    gave, each frame's seconds waiting on the dataset and in its track_*
+    call, the state after it)."""
+    rec = {}
+    run = module.run_dataset
+
+    def timed(ds, load_s, frames):
+        it = iter(ds)
+        while True:
+            t0 = time.perf_counter()
+            frame = next(it, None)
+            if frame is None:
+                return
+            load_s.append(time.perf_counter() - t0)
+            frames.append(frame)
+            yield frame
+
+    def wrapped(s, ds, track_fn, prefix):
+        load_s, track_s, states, frames = [], [], [], []
+
+        def track(s_, frame):
+            t0 = time.perf_counter()
+            T = track_fn(s_, frame)
+            track_s.append(time.perf_counter() - t0)
+            states.append(int(s_.state))
+            return T
+        rec.update(decoder=ds.decoder, load_s=load_s, track_s=track_s, states=states,
+                   frames=frames)
+        try:
+            return run(s, timed(ds, load_s, frames), track, prefix)
+        finally:
+            ds.close()
+    module.run_dataset = wrapped
+    try:
+        yield rec
+    finally:
+        module.run_dataset = run
+
+
+def _decode_ms(path, n=5):
+    """The port's PNG decoder on one file in this thread: the median ms."""
+    from orb_slam2_tpu_torch.utils import datasets
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        datasets.decode_png(path)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def files_phase(dev, card, rgbd, mono_clean):
+    """The port's example scripts (`orb_slam2_tpu_torch/examples/`) on sequences
+    written to disk in the datasets' layouts (`write_file_sequences`), each
+    through `main(argv, device)`: SlamSystem(cfg) as the scripts construct
+    it (loop closing on, the vocabulary trained on the fly), the settings
+    YAML read by `SlamConfig.from_yaml`. Checked per lap (see the module
+    docstring); then the checkpoint after tum-rgbd. The counts are set to 0
+    just before each driver's main and read just after it; the in-memory
+    twin laps and the resume are counted apart. Returns ({"drivers",
+    "twins", "resume": launches}, results)."""
+    from orb_slam2_tpu_torch.examples import mono_tum, rgbd_tum, stereo_euroc, stereo_kitti
+    from orb_slam2_tpu_torch.utils import datasets
+    examples = {"rgbd_tum": rgbd_tum, "mono_tum": mono_tum, "stereo_kitti": stereo_kitti,
+                "stereo_euroc": stereo_euroc}
+    tag = "[files]"
+    holder = tempfile.TemporaryDirectory(prefix="chip_smoke_files_")
+    tmp = holder.name
+    t0 = time.perf_counter()
+    laps = write_file_sequences(tmp, rgbd, mono_clean)
+    write_s = time.perf_counter() - t0
+    n_files = sum(len(fs) for lap in laps.values() for _, _, fs in os.walk(lap["dir"]))
+    filter_rows = laps["tum-rgbd"]["filter_rows"]
+    log(f"{tag} wrote {len(laps)} sequences ({n_files} files, "
+        f"{sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(tmp) for f in fs) / 1e6:.1f}"
+        f" MB) in {write_s:.1f} s: {list(laps)}; PNG rows by filter (None, Sub, Up, Average, "
+        f"Paeth, {FILES_PNG_FILTERS}): {filter_rows}")
+    lib = datasets._load_native()
+    probe = datasets.ImageStream([])
+    decoder = probe.decoder
+    probe.close()
+    log(f"{tag} the native decoder {datasets._LIB_PATH}: "
+        f"{'loaded' if lib is not None else 'not loaded (' + str(datasets._lib_error) + ')'}"
+        f"; ImageStream's decoder: {decoder}")
+
+    # the decoder alone on one 640x480 file of each kind, as written and
+    # with every row filter None
+    d = laps["tum-rgbd"]["dir"]
+    first = {"gray": os.path.join(laps["kitti-stereo"]["dir"], "image_0", "000000.png"),
+             "rgb": os.path.join(d, "rgb", sorted(os.listdir(os.path.join(d, "rgb")))[0]),
+             "depth16": os.path.join(d, "depth", sorted(os.listdir(os.path.join(d, "depth")))[0])}
+    decode_ms = {}
+    for kind, path in first.items():
+        img = datasets.decode_png(path)
+        plain = os.path.join(tmp, f"filter_none_{kind}.png")
+        write_png(plain, (img[..., 0] if img.shape[2] == 1 else img).astype(
+            np.uint16 if kind == "depth16" else np.uint8))
+        decode_ms[kind] = {FILES_PNG_FILTERS: _decode_ms(path), "none": _decode_ms(plain)}
+    log(f"{tag} the port's PNG decoder on one 640x480 file in one thread, {card}: "
+        + "; ".join(f"{k} {v[FILES_PNG_FILTERS]:.2f} ms ({FILES_PNG_FILTERS} filters), "
+                    f"{v['none']:.2f} ms (filter None)" for k, v in decode_ms.items()))
+
+    voc_ms = []
+    build = system.bow_voc.build_vocabulary
+
+    def timed_build(*a, **kw):
+        t = time.perf_counter()
+        out = build(*a, **kw)
+        torch.cuda.synchronize()
+        voc_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+    system.bow_voc.build_vocabulary = timed_build
+    res, systems = {}, {}
+    counts = {k: dict.fromkeys(launch.LAUNCHES, 0) for k in ("drivers", "twins", "resume")}
+
+    def read_counts(into):
+        for k, v in launch.LAUNCHES.items():
+            counts[into][k] += v
+    t_phase = time.perf_counter()
+    try:
+        for name, lap in laps.items():
+            cfg = SlamConfig.from_yaml(lap["settings"], sensor=lap["sensor"])
+            module = examples[lap["example"]]
+            with _driver_records(module) as rec:
+                launch.reset_launches()
+                t0 = time.perf_counter()
+                s = module.main(lap["argv"], device=dev)
+                torch.cuda.synchronize()
+                lap_s = time.perf_counter() - t0
+                read_counts("drivers")
+            systems[name] = s
+            states, load_s, track_s = rec["states"], rec["load_s"], rec["track_s"]
+            # what the driver read is what was written: gray exactly, depth
+            # to its 16-bit value
+            frames_l = rec.pop("frames")
+            if len(frames_l) != len(lap["written"]):
+                raise AssertionError(f"{tag} {name}: {len(frames_l)} frames read of "
+                                     f"{len(lap['written'])}")
+            for (ts, *got), want in zip(frames_l, lap["written"]):
+                if not all(np.array_equal(g, w.astype(np.float32)) for g, w in zip(got, want)):
+                    raise AssertionError(f"{tag} {name}: the frame at {ts} decodes to other "
+                                         f"values than were written")
+            kf = sorted(e["frame"] for e in s.metrics if e.get("kf"))
+            r = dict(frames=len(states), tracked=len(s.get_trajectory()), keyframes=len(kf),
+                     lap_s=lap_s, decoder=rec["decoder"],
+                     track_ms_median=statistics.median(track_s[1:]) * 1e3,
+                     load_wait_share=sum(load_s) / (sum(load_s) + sum(track_s)),
+                     load_wait_ms_median=statistics.median(load_s) * 1e3,
+                     traj_file_err=_trajectory_files(f"{tag} {name}", s, lap["argv"][-1]))
+            if s.voc is None or not bool(s.db.valid[s.m.kf_valid].all()):
+                raise AssertionError(f"{tag} {name}: the vocabulary trained on the fly is "
+                                     f"missing or lacks a live keyframe")
+            if rec["decoder"] != decoder:
+                raise AssertionError(f"{tag} {name}: decoder {rec['decoder']}, {decoder} "
+                                     f"expected")
+            if name in ("tum-rgbd", "kitti-stereo", "tum-mono"):
+                launch.reset_launches()
+                m, m_states, m_times = _memory_lap(cfg, frames_l, dev)
+                read_counts("twins")
+                _same_run(f"{tag} {name} (the example script from files against decoded arrays in "
+                          f"memory)", s, states, m, m_states)
+                r["memory_track_ms_median"] = statistics.median(m_times[1:])
+                del m
+            if name == "euroc-stereo":
+                _same_run(f"{tag} euroc-stereo against kitti-stereo", s, states,
+                          systems["kitti-stereo"], res["kitti-stereo"]["states"],
+                          timestamps=False)
+            if name in REFERENCE_FILES:
+                r["ate_m"] = _reference_check(tag, name, states, s, lap["gt"], lap["sensor"])
+            else:
+                r["ate_m"] = trajectory.ate_rmse(s.get_trajectory(), lap["gt"],
+                                                 with_scale=lap["sensor"] == SENSOR_MONOCULAR)
+            if name == "tum-mono":
+                init = states.index(system.OK) if system.OK in states else None
+                after = len(states) - (init or 0)
+                r["init_frame"] = init
+                if init is None or r["tracked"] < FILES_MONO_TRACKED_FLOOR * after:
+                    raise AssertionError(f"{tag} tum-mono: initialized at {init}, "
+                                         f"{r['tracked']} of {after} frames tracked after")
+            if name == "tum-rgbd":
+                launch.reset_launches()
+                r.update(_resume(tag, cfg, s, frames_l, lap["gt"], dev,
+                                 os.path.join(tmp, "map.npz")))
+                read_counts("resume")
+            r["states"] = states
+            res[name] = r
+            del frames_l
+            log(f"{tag} {name} through {lap['example']}.main: {r['tracked']} of {r['frames']} "
+                f"frames tracked, keyframes at {kf}, ATE {r['ate_m'] * 100:.3f} cm"
+                f"{'' if name != 'tum-mono' else f' (Sim3-aligned, initialized at frame {init})'}"
+                f"; every image read as written; {card}: track median "
+                f"{r['track_ms_median']:.2f} ms from files"
+                f"{'' if 'memory_track_ms_median' not in r else ', %.2f ms in memory (the same run bit for bit)' % r['memory_track_ms_median']}"
+                f"; waiting on the loader {r['load_wait_share']:.2%} of each frame (median "
+                f"{r['load_wait_ms_median']:.2f} ms); trajectory files within "
+                f"{r['traj_file_err']:.2g} of get_trajectory()")
+    finally:
+        system.bow_voc.build_vocabulary = build
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t_phase
+    del systems
+    holder.cleanup()
+    log(f"{tag} launches of the drivers' mains: {counts['drivers']}; of the in-memory twin "
+        f"laps: {counts['twins']}; of the resume: {counts['resume']}; the vocabulary trained "
+        f"on the fly in {[round(t, 1) for t in voc_ms]} ms (one per system); the phase "
+        f"{phase_s:.1f} s")
+    missing = [k for k, v in counts["drivers"].items() if v == 0 and k not in FILES_OFF_DRIVERS]
+    if missing:
+        raise AssertionError(f"{tag} kernels the drivers never launched: {missing}")
+    missing = [k for k in launch.LAUNCHES if k != "pose_normal_eqs"
+               and not sum(c[k] for c in counts.values())]
+    if missing:
+        raise AssertionError(f"{tag} kernels the phase never launched: {missing}")
+    for name in res:
+        res[name].pop("states")
+    return counts, dict(laps=res, decoder=decoder, decode_ms_one_file=decode_ms,
+                        filter_rows=filter_rows, write_s=write_s, vocabulary_ms=voc_ms,
+                        phase_s=phase_s)
 
 
 def main():
@@ -3238,10 +3954,13 @@ def main():
     stereo_launches, stereo_res = stereo_phase(voc, dev, card, errs,
                                                loop_res.pop("plain_frame_syncs"))
     mono_launches, mono_res = mono_phase(voc, dev, card, errs, clean)
+    files_launches, files_res = files_phase(
+        dev, card, (poses, frames),
+        (clean[0], clean[1][:FILES_MONO_FRAMES], clean[2][:FILES_MONO_FRAMES]))
     del clean
     log(f"[result] {card}: " + json.dumps({"system": system_res, "loop": loop_res,
                                            "multi": multi_res, "stereo": stereo_res,
-                                           "mono": mono_res}))
+                                           "mono": mono_res, "files": files_res}))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -3250,7 +3969,9 @@ def main():
     # `system_launches` are the [system] phase's, `loop_launches` the [loop]
     # phase's (K9's `gba`: its launches and timing at the global BA's shape),
     # `multi_launches` the [multi] phase's split lap's, `stereo_launches` and
-    # `mono_launches` those of the [stereo] and [mono] laps; the timings at their new inputs beside them (K1-K3 on a stereo
+    # `mono_launches` those of the [stereo] and [mono] laps, `files_launches`
+    # those of the [files] phase's driver mains (`files_twin_launches` its
+    # in-memory twin laps', `files_resume_launches` its resume's); the timings at their new inputs beside them (K1-K3 on a stereo
     # pair's right image, K4 at the initialization search, K9 at C = 2)
     froms = {"pose_normal_eqs": "a run of its own: no call chain of the main path reaches it",
              "best_two_node": "the [system] phase: relocalization's BoW search (no frame of "
@@ -3263,6 +3984,9 @@ def main():
                  "system_launches": system_launches[name],
                  "loop_launches": loop_launches[name], "multi_launches": multi_launches[name],
                  "stereo_launches": stereo_launches[name], "mono_launches": mono_launches[name],
+                 "files_launches": files_launches["drivers"][name],
+                 "files_twin_launches": files_launches["twins"][name],
+                 "files_resume_launches": files_launches["resume"][name],
                  "max_abs_err": errs[name], **per_call[name]}
         if name == "ba_edge":
             entry["gba"] = k9_gba
@@ -3274,6 +3998,8 @@ def main():
             entry["stereo_right_image"] = stereo_res["right_image"][name]
         if name in side_launches:
             entry["launches_from"] = froms[name]
+        if not files_launches["drivers"][name]:
+            entry["files_launches_from"] = FILES_OFF_DRIVERS[name]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

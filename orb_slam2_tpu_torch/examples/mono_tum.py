@@ -1,0 +1,27 @@
+"""Monocular example, the analogue of `Examples/Monocular/mono_tum.cc`.
+
+Usage:
+  python -m orb_slam2_tpu_torch.examples.mono_tum <settings.yaml> <sequence_dir> [out_prefix]
+
+settings.yaml can be the reference's own TUM1.yaml.
+"""
+import sys
+
+from ..pipeline.system import SlamSystem
+from ..utils.config import SENSOR_MONOCULAR, SlamConfig
+from ..utils.datasets import TumMonocular
+from .common import run_dataset
+
+
+def main(argv=None, device="cuda"):
+    argv = sys.argv[1:] if argv is None else argv
+    settings, seq = argv[0], argv[1]
+    prefix = argv[2] if len(argv) > 2 else "mono_tum"
+    cfg = SlamConfig.from_yaml(settings, sensor=SENSOR_MONOCULAR)
+    ds = TumMonocular(seq)
+    s = SlamSystem(cfg, device=device)
+    return run_dataset(s, ds, lambda s_, f: s_.track_monocular(f[1], f[0]), prefix)
+
+
+if __name__ == "__main__":
+    main()

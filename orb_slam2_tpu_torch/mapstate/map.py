@@ -664,6 +664,23 @@ def obs_table_counts(m: MapState, obs) -> torch.Tensor:
     return torch.where(obs_on, w, torch.zeros_like(w)).sum(dim=-1, dtype=torch.int32)
 
 
+def count_observations(m: MapState) -> torch.Tensor:
+    """(P,) observation count weighted like nObs: +1 mono, +2 stereo
+    (`MapPoint::AddObservation`, `include/MapPoint.h:116-130`), from the
+    whole kf_obs table (no saturation)."""
+    P = m.capacity_pt
+    on = m.kf_obs >= 0
+    w = torch.where(m.kf_ur >= 0, 2, 1).to(torch.int32)
+    idx = torch.where(on, m.kf_obs, torch.full_like(m.kf_obs, P)).reshape(-1).long()
+    cnt = torch.zeros((P + 1,), dtype=torch.int32, device=m.kf_obs.device)
+    return cnt.index_add_(0, idx, torch.where(on, w, torch.zeros_like(w)).reshape(-1))[:P]
+
+
+def refresh_obs_count(m: MapState) -> MapState:
+    """Recompute the cached pt_obs_cnt from the whole kf_obs table."""
+    return m._replace(pt_obs_cnt=count_observations(m))
+
+
 def refresh_obs_table(m: MapState, obs=None) -> MapState:
     """Rebuild the cached observation table and the weighted counts from
     kf_obs (or from a given point_observations table)."""
@@ -736,3 +753,11 @@ def update_point_normals(m: MapState, point_mask, scale_factors, max_obs: int = 
         pt_max_dist=torch.where(use, max_dist, m.pt_max_dist),
         pt_min_dist=torch.where(use, min_dist, m.pt_min_dist),
     )
+
+
+def predict_scale(m: MapState, dist, log_scale_factor: float, n_levels: int):
+    """`MapPoint::PredictScale` (`src/MapPoint.cc`): the octave from the
+    ratio of the point's max distance to `dist`."""
+    ratio = m.pt_max_dist / torch.clamp(dist, min=1e-9)
+    lvl = torch.ceil(torch.log(torch.clamp(ratio, min=1e-9)) / log_scale_factor)
+    return torch.clamp(lvl.to(torch.int32), 0, n_levels - 1)

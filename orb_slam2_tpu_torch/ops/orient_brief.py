@@ -84,18 +84,23 @@ def brief_points() -> np.ndarray:
 
 
 def ic_angles(img, ys, xs, weights=None):
-    """Intensity-centroid orientation for keypoints at integer (ys, xs),
-    each at least HALF_PATCH px from every border.
+    """Intensity-centroid orientation for keypoints at integer (ys, xs).
 
-    img: (H, W) float; ys/xs: (N,) int32; weights: `ic_weights()` as a
-    tensor on img's device (built here when None). Returns angles in
-    DEGREES [0, 360)."""
+    img: (H, W) float, at least 2 HALF_PATCH + 1 px each way; ys/xs: (N,)
+    int32; weights: `ic_weights()` as a tensor on img's device (built here
+    when None). A patch that would cross a border is moved inside it, as
+    the reference's `dynamic_slice` clamps its start: a keypoint at least
+    HALF_PATCH px from every border keeps its own patch (padded slots of a
+    level under ~35 px are the ones moved). Returns angles in DEGREES
+    [0, 360)."""
     if weights is None:
         weights = torch.as_tensor(ic_weights(), device=img.device)
     H, W = img.shape
-    r = torch.arange(-HALF_PATCH, HALF_PATCH + 1, device=img.device)
-    flat = ((ys.long()[:, None, None] + r[None, :, None]) * W
-            + xs.long()[:, None, None] + r[None, None, :])
+    r = torch.arange(2 * HALF_PATCH + 1, device=img.device)
+    y0 = torch.clamp(ys.long() - HALF_PATCH, 0, H - 2 * HALF_PATCH - 1)
+    x0 = torch.clamp(xs.long() - HALF_PATCH, 0, W - 2 * HALF_PATCH - 1)
+    flat = ((y0[:, None, None] + r[None, :, None]) * W
+            + x0[:, None, None] + r[None, None, :])
     patch = img.reshape(-1)[flat]                      # (N, 31, 31)
     m10 = (patch * weights[0]).sum(dim=(1, 2))
     m01 = (patch * weights[1]).sum(dim=(1, 2))

@@ -43,8 +43,8 @@ monocular two-view bootstrap in `_initialize_monocular`), the natural
 keyframe policy, relocalization from LOST (`_relocalize`), loop closing
 with the global BA spread over later keyframes (`loop_closing.py`) and the
 periodic global BA, the sharded solvers, the tracking / mapping split,
-localization mode, reset, trajectory export. Not ported yet (ROADMAP
-Queue 1 item 6): the frame drawer, which raises NotImplementedError.
+localization mode, reset, trajectory export, and the frame drawer
+(`draw_current_frame`, through `viewer.py`).
 """
 from __future__ import annotations
 
@@ -139,11 +139,6 @@ class TrajectoryEntry:
     T_rel: np.ndarray      # Tcw * inv(T_ref_kf) at track time
     ref_kf: int
     lost: bool
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP Queue 1 "
-                               f"item {item})")
 
 
 class SlamSystem:
@@ -1046,7 +1041,16 @@ class SlamSystem:
         return self.last_frame.xy.cpu().numpy(), self.last_frame.valid.cpu().numpy()
 
     def draw_current_frame(self, img, path="frame.png"):
-        raise _not_ported("the frame drawer", 6)
+        """FrameDrawer::DrawFrame: the last tracked frame's keypoints over
+        `img` with the status banner (`src/FrameDrawer.cc:33-208`), written
+        to `path` (the headless form of the live viewer's panel). None
+        before the first frame."""
+        from .. import viewer
+        if self.last_frame is None:
+            return None
+        matched = None if self.last_matched_pt is None else self.last_matched_pt >= 0
+        return viewer.draw_frame(img, self.last_frame, matched_mask=matched, path=path,
+                                 status=self.get_map_stats())
 
     # ------------------------------------------------------------------
     # Place recognition and relocalization

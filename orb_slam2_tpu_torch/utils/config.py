@@ -250,8 +250,12 @@ class SlamConfig:
             min_th_fast=int(g("ORBextractor.minThFAST", 7)),
             sensor=sensor,
         )
+        # the YAML gives sensor units per metre; the field is the multiplier
+        # from sensor units to metres, its inverse (`Tracking.cc`'s
+        # `mDepthMapFactor = 1.0f/mDepthMapFactor`). The JAX package keeps
+        # the value as read, so a TUM depth of 5000 reads as 25,000 km there.
         dmf = float(g("DepthMapFactor", 1.0))
-        kw["depth_map_factor"] = 1.0 if abs(dmf) < 1e-5 else dmf
+        kw["depth_map_factor"] = 1.0 if abs(dmf) < 1e-5 else 1.0 / dmf
         kw.update(overrides)
         return SlamConfig(**kw)
 

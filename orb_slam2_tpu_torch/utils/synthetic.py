@@ -1,14 +1,16 @@
 """Synthetic worlds for the port's tests and `chip_smoke.py`: a textured
 ground plane with raised plates and a street-canyon circuit (`BlockWorld`,
 rendered as a rectified stereo pair too), with exact ground-truth poses and
-depth, and camera trajectories (the part of `orb_slam2_tpu/utils/synthetic.py`
-the port's tests and smoke need). The NumPy code is the reference's own, so
-renders from the same seed are identical in both packages. Host-side, NumPy
-only.
+depth, and camera trajectories (a port of `orb_slam2_tpu/utils/synthetic.py`).
+The NumPy code is the reference's own, so renders from the same seed are
+identical in both packages. Host-side, NumPy only; `ate_rmse` is the
+trajectory module's, on (timestamp, T_wc) lists.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from .trajectory import ate_rmse  # noqa: F401  (the example scripts import it from here)
 
 
 def make_texture(rng, size=2048):
@@ -211,6 +213,59 @@ def loop_trajectory(n_frames, radius=3.0, overshoot=0.3, spiral=0.0):
         r = radius * (1.0 + spiral * a / (2.0 * np.pi))
         T = np.eye(4)
         T[:3, 3] = [r * np.cos(a) - radius, r * np.sin(a), 0.0]
+        poses.append(T)
+    return poses
+
+
+def survey_trajectory(n_frames, extent=10.0, rows=6, row_overlap_frames=8):
+    """Lawn-mower survey raster over the world: long straight rows with
+    lateral row changes and no rotation (optical axis fixed toward the
+    plane, like an aerial mapping run). Covers a large area with no early
+    revisit, so accumulated drift is measurable; adjacent rows overlap so
+    local mapping keeps stitching."""
+    row_len = 2 * extent
+    per_row = max(n_frames // rows, 2)
+    row_gap = 2 * extent / (rows + 1) * 0.35
+    poses = []
+    for i in range(n_frames):
+        r = min(i // per_row, rows - 1)
+        j = i - r * per_row
+        frac = j / max(per_row - 1, 1)
+        x = -extent + frac * row_len
+        if r % 2 == 1:
+            x = -x
+        y = -extent * 0.35 + r * row_gap
+        T = np.eye(4)
+        T[:3, 3] = [x, y, 0.02 * np.sin(i * 0.21)]
+        poses.append(T)
+    return poses
+
+
+def forward_trajectory(n_frames, speed=0.12, curve_period=400.0,
+                       curve_amp=0.8, close_loop=False):
+    """KITTI-00-flavoured forward motion over the plane world: a long
+    meandering path at constant speed with smooth heading changes, the
+    camera rotating about its optical axis to face the direction of travel
+    (in-image rotation, as car yaw gives on KITTI). With close_loop the
+    heading curvature closes one big circle over ~90 % of the frames, so the
+    path returns near its start at the end."""
+    poses = []
+    x, y = 0.0, 0.0
+    heading = 0.0
+    for i in range(n_frames):
+        if close_loop:
+            dh = 2.0 * np.pi / (0.9 * n_frames) + \
+                0.002 * np.sin(2 * np.pi * i / 97.0)
+        else:
+            dh = (curve_amp / curve_period) * np.sin(
+                2 * np.pi * i / curve_period)
+        heading += dh
+        x += speed * np.cos(heading)
+        y += speed * np.sin(heading)
+        ch, sh = np.cos(heading), np.sin(heading)
+        T = np.eye(4)
+        T[:3, :3] = np.array([[ch, -sh, 0.0], [sh, ch, 0.0], [0.0, 0.0, 1.0]])
+        T[:3, 3] = [x, y, 0.02 * np.sin(i * 0.13)]
         poses.append(T)
     return poses
 

@@ -3,7 +3,8 @@
 smoke run), measured on the CPU with the reference package's XLA path.
 
     env JAX_PLATFORMS=cpu python scripts/chip_smoke_reference.py \
-        [--system-only | --loop-only | --split-only | --stereo-only | --mono-only]
+        [--system-only | --loop-only | --split-only | --stereo-only | --mono-only |
+         --stream-only | --files-only]
 
 It renders chip_smoke's frames (the reference bench's first N_FRAMES poses,
 640x480, 1000 features, RGB-D), extracts them with the port's front end (as
@@ -254,7 +255,8 @@ def system_laps(jcfg, poses, jf):
     return out
 
 
-def sensor_lap(jcfg, poses, frame_at, key_offset=0, depth=0, mapping_device=None):
+def sensor_lap(jcfg, poses, frame_at, key_offset=0, depth=0, mapping_device=None,
+               vocabulary="synth", timestamps=None):
     """The reference SlamSystem with its defaults (loop closing on, 4
     amortized GBA chunks, the natural keyframe policy,
     `synth_vocabulary(10, 6)`) over the sequence, handed the port's frames
@@ -263,14 +265,19 @@ def sensor_lap(jcfg, poses, frame_at, key_offset=0, depth=0, mapping_device=None
     initializes), then `flush()`. A monocular run draws its initializer's
     RANSAC sets from PRNGKey(frame_id + key_offset). With depth > 0 the
     system streams at that depth (with `mapping_device`, the tracking /
-    mapping split). Returns the records chip_smoke holds a phase to."""
+    mapping split). vocabulary "synth" is `synth_vocabulary(10, 6)`, None
+    the tree trained on the fly (as the example scripts construct the system);
+    timestamps default to i / fps. Returns the records chip_smoke holds a
+    phase to."""
     from orb_slam2_tpu.bow import vocabulary as jvoc
     from orb_slam2_tpu.pipeline import loop_closing as jlc
     from orb_slam2_tpu.pipeline import system as jsystem
     from orb_slam2_tpu.solvers import initializer as jinit
     from orb_slam2_tpu.utils import trajectory as jtraj
 
-    voc = jvoc.synth_vocabulary(10, 6)
+    voc = jvoc.synth_vocabulary(10, 6) if vocabulary == "synth" else vocabulary
+    if timestamps is None:
+        timestamps = [i / jcfg.fps for i in range(len(poses))]
     jts.full_tracking_step_from_images = \
         lambda cfg, m, f, *rest: jts.full_tracking_step(cfg, m, f, *rest[:-1])
     s = jsystem.SlamSystem(jcfg, vocabulary=voc, pipeline_depth=depth,
@@ -306,10 +313,10 @@ def sensor_lap(jcfg, poses, frame_at, key_offset=0, depth=0, mapping_device=None
         for i in range(len(poses)):
             f = frame_at(i, mono and s.state == jsystem.NOT_INITIALIZED)
             if s.state == jsystem.OK and depth > 0:
-                s._track_stream(f, i / jcfg.fps, "rgbd")
+                s._track_stream(f, timestamps[i], "rgbd")
             else:
                 s._flush_pipeline()
-                s._track(f, i / jcfg.fps)
+                s._track(f, timestamps[i])
             states.append(int(s.state))
             if init_frame is None and s.state == jsystem.OK:
                 init_frame = i
@@ -320,7 +327,7 @@ def sensor_lap(jcfg, poses, frame_at, key_offset=0, depth=0, mapping_device=None
     finally:
         jlc.correct_loop, jlc.detect_loop_dispatch = correct_loop, dispatch
         jinit.initialize = initialize
-    gt = [(i / jcfg.fps, T) for i, T in enumerate(poses)]
+    gt = list(zip(timestamps, poses))
     traj = s.get_trajectory()
     print(f"detections (kf_seq, candidate frames): {[d for d in detections if d[1]]}")
     fid = np.asarray(s.m.kf_frame_id)
@@ -332,6 +339,46 @@ def sensor_lap(jcfg, poses, frame_at, key_offset=0, depth=0, mapping_device=None
                 loop_edge_frames=[[int(fid[i]), int(fid[j])]
                                   for i, j in np.asarray(s.m.loop_edges) if i >= 0],
                 ate_m=round(jtraj.ate_rmse(traj, gt, with_scale=mono), 6))
+
+
+def files_laps():
+    """The reference SlamSystem on chip_smoke's [files] sequences
+    (`write_file_sequences`), decoded by the port's datasets and extracted
+    by the port on the CPU: with its defaults and the vocabulary trained on
+    the fly, as the example scripts construct it, and the config its `from_yaml`
+    reads from each lap's settings, except depth_map_factor, set in code to
+    1/DepthMapFactor (the JAX `from_yaml` keeps the factor as read). The
+    state after every frame, the keyframe frames and the ATE of tum-rgbd,
+    tum-rgbd-distorted and kitti-stereo."""
+    import tempfile
+    import torch
+    import chip_smoke as cs
+    from orb_slam2_tpu_torch.pipeline import frame as tframe
+    from orb_slam2_tpu_torch.utils import convert
+    from orb_slam2_tpu_torch.utils.config import SlamConfig as TConfig
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        laps = cs.write_file_sequences(tmp)
+        for name in ("tum-rgbd", "tum-rgbd-distorted", "kitti-stereo"):
+            lap = laps[name]
+            tcfg = TConfig.from_yaml(lap["settings"], sensor=lap["sensor"])
+            jcfg = dataclasses.replace(
+                jconfig.SlamConfig.from_yaml(lap["settings"], sensor=lap["sensor"]),
+                use_pallas=0, depth_map_factor=tcfg.depth_map_factor)
+            assert convert.config_from_jax(jcfg) == tcfg
+            frames, decoder = cs.decoded_sequence(lap)
+            t = torch.from_numpy
+            if lap["sensor"] == jconfig.SENSOR_STEREO:
+                jf = [jax_frame(tframe.make_frame_stereo(t(l), t(r), tcfg)) for _, l, r in frames]
+            else:
+                jf = [jax_frame(tframe.make_frame_rgbd(t(g), t(d), tcfg)) for _, g, d in frames]
+            r = sensor_lap(jcfg, [T for _, T in lap["gt"]], lambda i, init: jf[i],
+                           vocabulary=None, timestamps=[ts for ts, _ in lap["gt"]])
+            out[name] = {k: r[k] for k in ("states", "kf_frames", "tracked", "keyframes",
+                                           "loops", "ate_m")}
+            print(f"{name} ({len(frames)} frames, decoder {decoder}): {out[name]}", flush=True)
+    return out
 
 
 def loop_lap(jcfg, poses, jf):
@@ -360,6 +407,40 @@ def main():
         jf = (jax_frame(tframe.make_frame_stereo(torch.from_numpy(l), torch.from_numpy(r), tcfg))
               for l, r in pairs)
         print(f"REFERENCE_STEREO = {sensor_lap(jcfg, poses, lambda i, init: next(jf))}")
+        print(f"jax {jax.__version__}, {time.perf_counter() - t0:.0f} s")
+        return
+    if "--files-only" in sys.argv:
+        print(f"REFERENCE_FILES = {files_laps()}")
+        print(f"jax {jax.__version__}, {time.perf_counter() - t0:.0f} s")
+        return
+    if "--stream-only" in sys.argv:
+        laps = {}
+        tcfg_s = cs.block_config()
+        jcfg_s = dataclasses.replace(jcfg, sensor=tcfg_s.sensor, bf=tcfg_s.bf)
+        assert convert.config_from_jax(jcfg_s) == tcfg_s
+        poses, pairs = cs.render_block_frames(cs.STREAM_LAP)
+        jf = (jax_frame(tframe.make_frame_stereo(torch.from_numpy(l), torch.from_numpy(r),
+                                                 tcfg_s))
+              for l, r in pairs)
+        laps["stereo"] = sensor_lap(jcfg_s, poses, lambda i, init: next(jf),
+                                    depth=cs.STREAM_DEPTH)
+        print(f"stereo stream: {laps['stereo']} ({time.perf_counter() - t0:.0f} s)", flush=True)
+        tcfg_m = cs.mono_config()
+        jcfg_m = dataclasses.replace(jcfg, sensor=tcfg_m.sensor, bf=tcfg_m.bf)
+        poses, frames = cs.render_mono_frames(cs.render_loop_clean(cs.STREAM_LAP))
+        cache = {}
+
+        def mono_at(i, init):
+            if (i, init) not in cache:
+                cache[(i, init)] = jax_frame(tframe.make_frame_monocular(
+                    torch.from_numpy(frames[i]), tcfg_m, init=init))
+            return cache[(i, init)]
+        laps["mono"] = [sensor_lap(jcfg_m, poses, mono_at, key_offset=k, depth=cs.STREAM_DEPTH)
+                        for k in range(MONO_KEYS)]
+        for lap in [laps["stereo"], *laps["mono"]]:
+            lap.pop("loop_edge_frames", None)
+            lap.pop("points", None)
+        print(f"REFERENCE_STREAMS = {laps}")
         print(f"jax {jax.__version__}, {time.perf_counter() - t0:.0f} s")
         return
     if "--mono-only" in sys.argv:

