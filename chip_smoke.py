@@ -158,7 +158,19 @@ Phases (each prints its result; any failure exits non-zero):
                phase (the resume's relocalization). Timed: the decoder on
                one file of each kind (as written and with filter None), the
                share of each frame waiting on the loader, track_* from
-               files against in memory, the vocabulary's training.
+               files against in memory, the vocabulary's training;
+12. eval     — after [files]: EVAL.md's torture-forward-rgbd row
+               (`eval_synthetic_hard.row`: exposure amplitude 0.25, 0.12 m
+               a frame, 256 keyframes and 32,768 points), its first 150
+               frames (the gain falls to 0.75 at frame 135), rendered on
+               threads ahead of the tracker, through SlamSystem.track_rgbd
+               with loop closing on, then flush(); checked against the JAX
+               reference's SlamSystem on the same frames (REFERENCE_EVAL:
+               the states of frames 0-30, 95 % tracked, keyframes inserted
+               within 20 %, the ATE within 2x + 1 cm, its closures and any
+               other genuine), a finite map, every kernel of the path
+               launched; logged: the frames that took the wide-window retry
+               and the reference-keyframe fallback, track_rgbd per frame.
 The second-to-last line is the kernels' JSON record (K4's two forms apart:
 best_two the window form, best_two_node the node form); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -174,7 +186,7 @@ import sys
 import tempfile
 import time
 import warnings
-from collections import Counter, deque
+from collections import Counter
 from contextlib import contextmanager
 
 import numpy as np
@@ -186,6 +198,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import torch
 
 from orb_slam2_tpu_torch.bow.vocabulary import synth_vocabulary
+from orb_slam2_tpu_torch.examples import eval_synthetic_hard as ev
 from orb_slam2_tpu_torch.geometry import se3
 from orb_slam2_tpu_torch.geometry.camera import Camera
 from orb_slam2_tpu_torch.mapstate import map as mapstate
@@ -204,9 +217,7 @@ from orb_slam2_tpu_torch.solvers import initializer, pcg_ba, pose_graph, schur_b
 from orb_slam2_tpu_torch.utils import trajectory
 from orb_slam2_tpu_torch.utils.config import (SlamConfig, SENSOR_MONOCULAR, SENSOR_RGBD,
                                               SENSOR_STEREO)
-from orb_slam2_tpu_torch.utils.synthetic import (BlockWorld, ImperfectCamera, PlateWorld,
-                                                 city_block_trajectory, figure_eight_trajectory,
-                                                 loop_trajectory)
+from orb_slam2_tpu_torch.utils.synthetic import ImperfectCamera, PlateWorld, loop_trajectory
 
 # What the reference package (orb_slam2_tpu, XLA path, use_pallas=0) gives on
 # the frames below, rendered and quantized exactly as here, with the same
@@ -315,12 +326,11 @@ KF_EVERY = 3                # a keyframe forced on every 3rd frame (bench.py:118
 N_RECORD = 7                # frames of the recording run (events at 3 and 6, BA on 6)
 KIDNAP_POSE = 12            # the [system] phase's kidnap: the render of this mapped pose
 STREAM_DEPTH = 3            # the [system] phase's stream lap (bench.py's default depth)
-LOOP_FRAMES = 560           # the [loop] phase's figure eight (EVAL.md's fig8-rgbd row)
 SEQ_FRAMES_CHECKED = 31     # [stereo]: the first frames, whose states must equal the reference's
-BLOCK_FRAMES = 780          # the street canyon of EVAL.md's block-stereo row
 BLOCK_LAP = 390             # [stereo]: its first frames, driven (cut for the time limit)
 STREAM_LAP = 240            # [stereo], [mono]: the stream lap's frames (the same cut)
 BLOCK_BASELINE = 0.5        # m: bf = 0.5 fx, KITTI-flavoured
+EVAL_FRAMES = 150           # [eval]: torture-forward-rgbd's first frames (gain 0.75 at 135)
 RENDER_AHEAD = 48           # frames rendered ahead of the tracker (a bounded queue)
 STEREO_TIMED = 60           # [stereo]: frames timed again with no renderer running
 LOOP_KF_SLACK = 3           # keyframes a closure may move from the reference's (covis_consistency_th)
@@ -431,14 +441,14 @@ def render_frames():
 
 
 def render_loop_clean(n=None):
-    """The figure eight of the reference's evaluation
-    (`examples/eval_synthetic_hard.py:238-254`): PlateWorld (z0 5, extent
-    14, 400 plates, seed 5) and figure_eight_trajectory(560, radius=3.2),
-    the first `n` poses (all by default), rendered clean on a few threads.
-    Returns (world, poses, [(gray, depth)])."""
+    """The figure eight of the fig8-rgbd row (`eval_synthetic_hard.row`:
+    PlateWorld with z0 5, extent 14, 400 plates, seed 5, and
+    figure_eight_trajectory(560, radius=3.2)), the first `n` poses (all by
+    default), rendered clean on a few threads. Returns (world, poses,
+    [(gray, depth)])."""
     from concurrent.futures import ThreadPoolExecutor
-    world = PlateWorld(FX, FX, W / 2, H / 2, W, H, z0=5.0, extent=14.0, n_plates=400, seed=5)
-    poses = figure_eight_trajectory(LOOP_FRAMES, radius=3.2)[:n]
+    r = ev.row("fig8-rgbd")
+    world, poses = r.cam.world, r.gt[:n]
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
         clean = list(pool.map(world.render_with_depth, poses))
     return world, poses, clean
@@ -478,31 +488,17 @@ def block_config():
 
 
 def render_block_frames(n=None):
-    """The block-stereo sequence of the reference's evaluation: BlockWorld,
-    city_block_trajectory(780, corner_radius=6.0, speed=0.15,
-    overshoot=0.12) and ImperfectCamera(noise_sigma=3.0, exposure_amp=0.15),
-    the first `n` poses (all by default). Returns (poses, a generator of
-    (left, right) float32 pairs in frame order): the clean pairs render on a
-    few threads at most RENDER_AHEAD frames ahead of the consumer, and the
-    camera's noise is drawn in frame order, left before right, as a
-    sequential render draws it."""
-    from concurrent.futures import ThreadPoolExecutor
-    world = BlockWorld(FX, FX, W / 2, H / 2, W, H)
-    poses = city_block_trajectory(BLOCK_FRAMES, corner_radius=6.0, speed=0.15,
-                                  overshoot=0.12)[:n]
-    cam = ImperfectCamera(world, noise_sigma=3.0, exposure_amp=0.15)
-
-    def pairs():
-        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
-            ahead = deque(pool.submit(world.render_stereo, T, BLOCK_BASELINE)
-                          for T in poses[:RENDER_AHEAD])
-            for i in range(len(poses)):
-                if i + RENDER_AHEAD < len(poses):
-                    ahead.append(pool.submit(world.render_stereo, poses[i + RENDER_AHEAD],
-                                             BLOCK_BASELINE))
-                left, right, _ = ahead.popleft().result()
-                yield cam.degrade(left, i), cam.degrade(right, i)
-    return poses, pairs()
+    """The block-stereo sequence of the reference's evaluation
+    (`eval_synthetic_hard.row`: BlockWorld, city_block_trajectory(780,
+    corner_radius=6.0, speed=0.15, overshoot=0.12) and
+    ImperfectCamera(noise_sigma=3.0, exposure_amp=0.15)), the first `n`
+    poses (all by default). Returns (poses, a generator of (left, right)
+    float32 pairs in frame order): the clean pairs render on a few threads
+    at most RENDER_AHEAD frames ahead of the consumer, and the camera's
+    noise is drawn in frame order, left before right, as a sequential
+    render draws it (`row_frames`)."""
+    r = ev.row("block-stereo")
+    return r.gt[:n], ((a, b) for _, a, b in ev.row_frames(r, n, ahead=RENDER_AHEAD))
 
 
 @contextmanager
@@ -2053,15 +2049,17 @@ def _track_frame(s, frame, t):
 
 
 def _loop_lap(cfg, voc, frames, dev, times=None, syncs=None, closure_nb=None, depth=0,
-              states=None, front=None):
+              states=None, front=None, enable_loops=True):
     """A fresh SlamSystem with its defaults (loop closing on, 4 amortized
     GBA chunks) over the frames (any iterable, through `_track_frame`), then
     flush(). With `times`, each call's wall ms; with `syncs`, each call's
     host syncs (torch's sync debug mode); with `closure_nb`, each closure's
     candidate's covisible keyframes' frames; with `states`, the state after
     each call; with `front`, each call's K1, K2 and K3 launches. `depth`:
-    the pipelined stream's depth."""
-    s = system.SlamSystem(cfg, vocabulary=voc, pipeline_depth=depth, device=dev)
+    the pipelined stream's depth; `enable_loops=False` turns loop closing
+    off."""
+    s = system.SlamSystem(cfg, vocabulary=voc, pipeline_depth=depth, device=dev,
+                          enable_loop_closing=enable_loops)
     saved = loop_closing.correct_loop
     if closure_nb is not None:
         def correct(cfg_, m, kf_id, cand_id, Scm, **kw):
@@ -2106,14 +2104,42 @@ def _genuine(poses, closure):
                 a[:3, 2] @ b[:3, 2] >= np.cos(np.radians(GENUINE_LOOP_DEG)))
 
 
+def closure_misses(n_loops, got, closure_nb, ref, poses, extra_loops=False):
+    """A run's closures (`got`, each with its keyframe sequence number and
+    frames; `closure_nb`, each one's candidate's covisible keyframes'
+    frames) against the reference's record: each of the reference's
+    closures matched by one of the run's at its keyframe sequence number
+    within LOOP_KF_SLACK with the reference's candidate or one of its
+    covisible keyframes; as many closures as the reference's, or with
+    `extra_loops` more where each extra one is genuine (`_genuine`).
+    Returns what is wrong, in that order (empty when nothing is)."""
+    misses = []
+    if n_loops < ref["loops"] or (not extra_loops and n_loops != ref["loops"]):
+        misses.append(f"{n_loops} loops closed, the reference {ref['loops']}")
+    matched = []
+    for r in ref["closures"]:
+        hit = [i for i, (c, nb) in enumerate(zip(got, closure_nb)) if i not in matched and
+               abs(c["kf_seq"] - r["kf_seq"]) <= LOOP_KF_SLACK and
+               (c["cand_frame"] == r["cand_frame"] or c["cand_frame"] in
+                r["cand_neighbour_frames"] or r["cand_frame"] in nb)]
+        if not hit:
+            misses.append(f"no closure within {LOOP_KF_SLACK} keyframes of the reference's at "
+                          f"keyframe {r['kf_seq']} with its candidate (frame {r['cand_frame']}) "
+                          f"or one covisible with it: "
+                          f"{[(c['kf_seq'], c['cand_frame']) for c in got]}")
+            continue
+        matched.append(hit[0])
+    extra = [c for i, c in enumerate(got) if i not in matched]
+    if any(not _genuine(poses, c) for c in extra):
+        misses.append(f"a closure the reference did not make joins two places: "
+                      f"{[(c['kf_frame'], c['cand_frame']) for c in extra]}")
+    return misses
+
+
 def _loop_check(cfg, s, poses, closure_nb, ref, tag="[loop]", extra_loops=False):
-    """The run against the reference's: each of the reference's closures
-    matched by one of the run's at its keyframe sequence number within
-    LOOP_KF_SLACK with the reference's candidate or one of its covisible
-    keyframes; as many closures as the reference's, or with `extra_loops`
-    more where each extra one is genuine (`_genuine`); the frames tracked,
-    the ATE, a finite map, the loop edges. Returns (the ATE, the frames
-    tracked)."""
+    """The run against the reference's: its closures (`closure_misses`),
+    the frames tracked, the ATE, a finite map, the loop edges. Returns (the
+    ATE, the frames tracked)."""
     gt = [(i / cfg.fps, T) for i, T in enumerate(poses)]
     traj = s.get_trajectory()
     ate = trajectory.ate_rmse(traj, gt)
@@ -2125,25 +2151,9 @@ def _loop_check(cfg, s, poses, closure_nb, ref, tag="[loop]", extra_loops=False)
         f"number, frame, candidate's frame; reference {ref['loops']} at "
         f"{[(c['kf_seq'], c['kf_frame'], c['cand_frame']) for c in ref['closures']]}); ATE "
         f"{ate * 100:.3f} cm (reference {ref['ate_m'] * 100:.3f} cm)")
-    if s.n_loops_closed < ref["loops"] or (not extra_loops and s.n_loops_closed != ref["loops"]):
-        raise AssertionError(f"{tag} {s.n_loops_closed} loops closed, the reference "
-                             f"{ref['loops']}")
-    matched = []
-    for r in ref["closures"]:
-        hit = [i for i, (c, nb) in enumerate(zip(got, closure_nb)) if i not in matched and
-               abs(c["kf_seq"] - r["kf_seq"]) <= LOOP_KF_SLACK and
-               (c["cand_frame"] == r["cand_frame"] or c["cand_frame"] in
-                r["cand_neighbour_frames"] or r["cand_frame"] in nb)]
-        if not hit:
-            raise AssertionError(f"{tag} no closure within {LOOP_KF_SLACK} keyframes of the "
-                                 f"reference's at keyframe {r['kf_seq']} with its candidate "
-                                 f"(frame {r['cand_frame']}) or one covisible with it: "
-                                 f"{[(c['kf_seq'], c['cand_frame']) for c in got]}")
-        matched.append(hit[0])
-    extra = [c for i, c in enumerate(got) if i not in matched]
-    if any(not _genuine(poses, c) for c in extra):
-        raise AssertionError(f"{tag} a closure the reference did not make joins two places: "
-                             f"{[(c['kf_frame'], c['cand_frame']) for c in extra]}")
+    misses = closure_misses(s.n_loops_closed, got, closure_nb, ref, poses, extra_loops)
+    if misses:
+        raise AssertionError(f"{tag} {misses[0]}")
     if len(traj) < LOOP_TRACKED_FLOOR * len(poses):
         raise AssertionError(f"{tag} {len(traj)} of {len(poses)} frames tracked")
     if not ate <= 2 * ref["ate_m"] + 0.01:
@@ -3907,6 +3917,92 @@ def files_phase(dev, card, rgbd, mono_clean):
                         phase_s=phase_s)
 
 
+# ---------------------------------------------------------------------------
+# [eval]: the torture row's first trough through SlamSystem
+# ---------------------------------------------------------------------------
+
+# What the reference (orb_slam2_tpu, XLA path) gives on [eval]'s frames handed
+# the port's CPU extraction: `scripts/chip_smoke_reference.py --eval-only`
+# (its SlamSystem with the row's config, loop closing on,
+# synth_vocabulary(10, 6), then flush()): the loops, the frames tracked, the
+# keyframes inserted and kept, the points, the keyframe frames, the states of
+# the first 31 frames, the frames not tracked, the frames that fell back to
+# the reference keyframe and the ATE.
+REFERENCE_EVAL = {'loops': 0, 'closures': [], 'tracked': 150, 'keyframes_inserted': 11,
+                  'keyframes': 11, 'points': 2601,
+                  'kf_frames': [10, 11, 15, 20, 26, 38, 60, 85, 108, 134],
+                  'states': [1] * 31, 'lost_frames': [], 'fallback_frames': [],
+                  'ate_m': 0.041967}
+
+
+def eval_phase(voc, dev, card):
+    """EVAL.md's torture-forward-rgbd row (`eval_synthetic_hard.row`: the
+    long forward drive under exposure amplitude 0.25 at 0.12 m a frame, 256
+    keyframes and 32,768 points), its first EVAL_FRAMES frames (the gain
+    falls to 0.75 at frame 135), rendered on threads ahead of the tracker,
+    through SlamSystem.track_rgbd synchronously with loop closing on, then
+    flush(): checked against REFERENCE_EVAL (the states of the first
+    SEQ_FRAMES_CHECKED frames, LOOP_TRACKED_FLOOR of the frames tracked, the
+    keyframes inserted within KF_COUNT_SLACK, the ATE within 2x + 1 cm, the
+    reference's closures and any other genuine), a finite map, every kernel
+    of PATH_KERNELS launched. Logged: the frames that took the wide-window
+    retry (the step's scalars[10]) and the fallback to the reference
+    keyframe. Counts set to 0 before the lap, read after. Returns
+    (launches, results)."""
+    r = ev.row("torture-forward-rgbd")
+    poses = r.gt[:EVAL_FRAMES]
+    frames = ((a, b) for _, a, b in ev.row_frames(r, EVAL_FRAMES, ahead=RENDER_AHEAD))
+    times, states, closure_nb = [], [], []
+    launch.reset_launches()
+    t0 = time.perf_counter()
+    s = _loop_lap(r.cfg, voc, frames, dev, times, closure_nb=closure_nb, states=states)
+    lap_s = time.perf_counter() - t0
+    launches = dict(launch.LAUNCHES)
+    ref = REFERENCE_EVAL
+    gt = [(i / r.cfg.fps, T) for i, T in enumerate(poses)]
+    traj = s.get_trajectory()
+    ate = trajectory.ate_rmse(traj, gt)
+    retry = [e["frame"] for e in s.metrics if e.get("retry")]
+    fallback = [e["frame"] for e in s.metrics if e.get("fallback")]
+    plain_ms, kf_ms, closure_ms = _split_kf(times, s.metrics,
+                                           [c["kf_frame"] for c in s.loop_closures])
+    log(f"[eval] {card}: torture-forward-rgbd's first {len(poses)} frames: {len(traj)} tracked "
+        f"(reference {ref['tracked']}) in {lap_s:.1f} s; {s._kf_seq_host} keyframes inserted "
+        f"(reference {ref['keyframes_inserted']}), {int(s.m.n_keyframes)} kept, "
+        f"{int(s.m.n_points)} points; {s.n_loops_closed} loops (reference {ref['loops']}); ATE "
+        f"{ate * 100:.3f} cm (reference {ref['ate_m'] * 100:.3f} cm); the wide-window retry on "
+        f"{len(retry)} frames {retry}, the fallback on {len(fallback)} frames {fallback} "
+        f"(reference {ref['fallback_frames']}); track_rgbd median {_fmt(plain_ms)} ms without a "
+        f"keyframe, {_fmt(kf_ms)} ms with one; launches over the lap: {launches}")
+    got_states = [int(st) for st in states[:SEQ_FRAMES_CHECKED]]
+    if got_states != ref["states"]:
+        raise AssertionError(f"[eval] states of frames 0-{SEQ_FRAMES_CHECKED - 1} {got_states}, "
+                             f"the reference's {ref['states']}")
+    if len(traj) < LOOP_TRACKED_FLOOR * len(poses):
+        raise AssertionError(f"[eval] {len(traj)} of {len(poses)} frames tracked")
+    k_ref = ref["keyframes_inserted"]
+    if abs(s._kf_seq_host - k_ref) > KF_COUNT_SLACK * k_ref:
+        raise AssertionError(f"[eval] {s._kf_seq_host} keyframes inserted, the reference {k_ref}")
+    if not ate <= 2 * ref["ate_m"] + 0.01:
+        raise AssertionError(f"[eval] ATE {ate:.4f} m > 2 x the reference's {ref['ate_m']:.4f} "
+                             f"m + 1 cm")
+    misses = closure_misses(s.n_loops_closed, s.loop_closures, closure_nb, ref, poses,
+                            extra_loops=True)
+    if misses:
+        raise AssertionError(f"[eval] {misses[0]}")
+    bad = _map_finite(s.m)
+    if bad:
+        raise AssertionError(f"[eval] non-finite {bad} in the map")
+    missing = [k for k in PATH_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"[eval] kernels never launched: {missing}")
+    return launches, {"tracked": len(traj), "keyframes_inserted": s._kf_seq_host,
+                      "loops": s.n_loops_closed, "ate_m": ate, "lap_s": lap_s,
+                      "retry_frames": retry, "fallback_frames": fallback,
+                      "track_ms_median": plain_ms, "keyframe_track_ms_median": kf_ms,
+                      "closure_track_ms": closure_ms}
+
+
 def main():
     card = device_phase()
     dev = torch.device("cuda", 0)
@@ -3958,9 +4054,11 @@ def main():
         dev, card, (poses, frames),
         (clean[0], clean[1][:FILES_MONO_FRAMES], clean[2][:FILES_MONO_FRAMES]))
     del clean
+    eval_launches, eval_res = eval_phase(voc, dev, card)
     log(f"[result] {card}: " + json.dumps({"system": system_res, "loop": loop_res,
                                            "multi": multi_res, "stereo": stereo_res,
-                                           "mono": mono_res, "files": files_res}))
+                                           "mono": mono_res, "files": files_res,
+                                           "eval": eval_res}))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -3971,7 +4069,8 @@ def main():
     # `multi_launches` the [multi] phase's split lap's, `stereo_launches` and
     # `mono_launches` those of the [stereo] and [mono] laps, `files_launches`
     # those of the [files] phase's driver mains (`files_twin_launches` its
-    # in-memory twin laps', `files_resume_launches` its resume's); the timings at their new inputs beside them (K1-K3 on a stereo
+    # in-memory twin laps', `files_resume_launches` its resume's), `eval_launches`
+    # those of the [eval] lap; the timings at their new inputs beside them (K1-K3 on a stereo
     # pair's right image, K4 at the initialization search, K9 at C = 2)
     froms = {"pose_normal_eqs": "a run of its own: no call chain of the main path reaches it",
              "best_two_node": "the [system] phase: relocalization's BoW search (no frame of "
@@ -3987,6 +4086,7 @@ def main():
                  "files_launches": files_launches["drivers"][name],
                  "files_twin_launches": files_launches["twins"][name],
                  "files_resume_launches": files_launches["resume"][name],
+                 "eval_launches": eval_launches[name],
                  "max_abs_err": errs[name], **per_call[name]}
         if name == "ba_edge":
             entry["gba"] = k9_gba

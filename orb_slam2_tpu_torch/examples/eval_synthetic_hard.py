@@ -20,8 +20,10 @@ import argparse
 import json
 import os
 import time
+from typing import NamedTuple
 
 import numpy as np
+
 
 def run_sequence(cfg, world_cam, gt, sensor, label, enable_loops=True,
                  pipeline_depth=0, vocabulary=None, result_dir=None, device="cuda"):
@@ -94,6 +96,149 @@ def run_sequence(cfg, world_cam, gt, sensor, label, enable_loops=True,
     return res
 
 
+# EVAL.md's rows, in the order main runs them
+ROWS = ("survey-rgbd", "loop-rgbd", "loop-mono", "long-forward-rgbd", "torture-forward-rgbd",
+        "fig8-rgbd", "fig8-mono", "block-stereo", "block-rgbd")
+
+
+class Row(NamedTuple):
+    """One row of the evaluation: its config, the camera its frames render
+    through (`cam.render_with_depth(T, i)` / `cam.render_stereo(T, cfg.baseline,
+    i)` in frame order), the ground-truth camera-to-world poses, the sensor
+    ("rgbd", "mono" or "stereo") and whether loop closing runs."""
+    name: str
+    cfg: object
+    cam: object
+    gt: list
+    sensor: str
+    enable_loops: bool
+
+
+def _base_config(small):
+    from ..utils.config import SENSOR_RGBD, SlamConfig
+    if small:
+        W, H, fx, nf = 320, 240, 260.0, 600
+    else:
+        W, H, fx, nf = 640, 480, 517.3, 1000
+    # the capacities of bench.py's configuration
+    return SlamConfig(fx=fx, fy=fx, cx=W / 2, cy=H / 2, width=W, height=H, bf=fx * 0.25,
+                      sensor=SENSOR_RGBD, fps=30.0, th_depth=40.0, n_features=nf,
+                      max_keyframes=128, max_map_points=1 << 14)
+
+
+def row(name, small=False, cam=None):
+    """The row `name` of ROWS, with the parameters of the evaluation
+    (`--small`: the reduced CPU size). `cam`: the ImperfectCamera to render
+    through, where a caller shares one between rows; by default a fresh one.
+    main runs block-rgbd through block-stereo's camera, so its noise
+    continues where block-stereo's 2 draws a frame ended: a fresh
+    block-rgbd camera draws those first."""
+    import dataclasses
+
+    from ..utils.config import SENSOR_MONOCULAR, SENSOR_STEREO
+    from ..utils.synthetic import (BlockWorld, ImperfectCamera, PlateWorld,
+                                   city_block_trajectory, figure_eight_trajectory,
+                                   forward_trajectory, loop_trajectory, survey_trajectory)
+
+    if name not in ROWS:
+        raise ValueError(f"no row {name!r}; the rows are {ROWS}")
+    cfg = _base_config(small)
+    fx, W, H, cx, cy = cfg.fx, cfg.width, cfg.height, cfg.cx, cfg.cy
+    n_loop = 110 if small else 360
+    if name == "survey-rgbd":
+        world = PlateWorld(fx, fx, cx, cy, W, H, z0=5.0, extent=14.0, n_plates=300)
+        return Row(name, cfg, cam or ImperfectCamera(world),
+                   survey_trajectory(160 if small else 500, extent=9.0, rows=6), "rgbd", False)
+    if name == "loop-rgbd":
+        world = PlateWorld(fx, fx, cx, cy, W, H, z0=5.0)
+        return Row(name, cfg, cam or ImperfectCamera(world),
+                   loop_trajectory(n_loop, radius=3.0), "rgbd", True)
+    if name == "loop-mono":
+        world = PlateWorld(fx, fx, cx, cy, W, H, z0=5.0)
+        return Row(name, dataclasses.replace(cfg, sensor=SENSOR_MONOCULAR, bf=0.0),
+                   cam or ImperfectCamera(world, noise_sigma=2.0),
+                   loop_trajectory(n_loop, radius=3.0), "mono", True)
+    if name in ("long-forward-rgbd", "torture-forward-rgbd"):
+        # KITTI-00-scale drive: one big loop, hundreds of keyframes (DB
+        # erase, trajectory rehoming, covisibility and the K-capacity
+        # guard), with capacities that let the keyframe count climb past
+        # 200 before culling bounds it
+        if not small:
+            cfg = dataclasses.replace(cfg, max_keyframes=256, max_map_points=1 << 15)
+        world = PlateWorld(fx, fx, cx, cy, W, H, z0=5.0, extent=30.0, n_plates=900, seed=11)
+        if name == "long-forward-rgbd":
+            # softer photometrics: this row tests capacity at scale, and at
+            # VGA the default amp=0.25 crest clips ~25% of texture pixels;
+            # 0.08 m/frame = 8.3 px/frame optical flow at VGA/517fx/z=5,
+            # inside the motion-model matcher's ~13 px/frame envelope
+            return Row(name, cfg, cam or ImperfectCamera(world, exposure_amp=0.15,
+                                                         noise_sigma=3.0),
+                       forward_trajectory(400 if small else 1200, speed=0.08, close_loop=True),
+                       "rgbd", True)
+        # the torture photometrics: exposure 0.25 and 0.12 m/frame, the
+        # values documented as fatal (inliers crash at the gain-0.75 trough);
+        # the wide-window retry and the RGB-D th=3 local search
+        # (src/Tracking.cc:1804-1807) must carry it
+        return Row(name, cfg, cam or ImperfectCamera(world, exposure_amp=0.25, noise_sigma=3.0),
+                   forward_trajectory(400 if small else 900, speed=0.12, close_loop=True),
+                   "rgbd", True)
+    if name in ("fig8-rgbd", "fig8-mono"):
+        # the figure eight: drift disconnects each crossover revisit, so
+        # detect -> Sim3 -> correct -> essential graph -> global BA fires
+        world = PlateWorld(fx, fx, cx, cy, W, H, z0=5.0, extent=14.0, n_plates=400, seed=5)
+        gt = figure_eight_trajectory(220 if small else 560, radius=3.2)
+        if name == "fig8-rgbd":
+            return Row(name, cfg, cam or ImperfectCamera(world, noise_sigma=3.0), gt, "rgbd",
+                       True)
+        return Row(name, dataclasses.replace(cfg, sensor=SENSOR_MONOCULAR, bf=0.0),
+                   cam or ImperfectCamera(world, noise_sigma=2.0), gt, "mono", True)
+    # the street-canyon circuit (the KITTI regime): optical axis along the
+    # motion, a depth-stratified scene, 90-degree turns, one loop around the
+    # block; stereo with a 0.5 m baseline (th_depth * b = 20 m, like KITTI's
+    # 35 * 0.54) and RGB-D
+    world = BlockWorld(fx, fx, cx, cy, W, H)
+    gt = city_block_trajectory(300 if small else 780, corner_radius=6.0, speed=0.15,
+                               overshoot=0.12)
+    if name == "block-stereo":
+        return Row(name, dataclasses.replace(cfg, sensor=SENSOR_STEREO, bf=fx * 0.5),
+                   cam or ImperfectCamera(world, noise_sigma=3.0, exposure_amp=0.15), gt,
+                   "stereo", True)
+    if cam is None:
+        cam = ImperfectCamera(world, noise_sigma=3.0, exposure_amp=0.15)
+        for _ in range(2 * len(gt)):
+            cam.rng.normal(0.0, cam.noise_sigma, (H, W))
+    return Row(name, cfg, cam, gt, "rgbd", True)
+
+
+def row_frames(r, n=None, ahead=48, workers=8):
+    """Row r's first n frames (all by default) in frame order, as
+    `run_sequence` renders them: ("rgbd", gray, depth), ("mono", gray, None)
+    or ("stereo", left, right) float32 images. The clean renders run on a
+    thread pool at most `ahead` frames ahead of the consumer; the camera's
+    noise is drawn in frame order (left before right), as a sequential
+    render draws it."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    gt = r.gt[:n]
+    world, cam = r.cam.world, r.cam
+    if r.sensor == "stereo":
+        def render(T):
+            return world.render_stereo(T, r.cfg.baseline)
+    else:
+        render = world.render_with_depth
+    with ThreadPoolExecutor(max_workers=min(workers, os.cpu_count() or 1)) as pool:
+        queue = deque(pool.submit(render, T) for T in gt[:ahead])
+        for i in range(len(gt)):
+            if i + ahead < len(gt):
+                queue.append(pool.submit(render, gt[i + ahead]))
+            a, b, *_ = queue.popleft().result()
+            if r.sensor == "stereo":
+                yield r.sensor, cam.degrade(a, i), cam.degrade(b, i)
+            else:
+                yield r.sensor, cam.degrade(a, i), (b if r.sensor == "rgbd" else None)
+
+
 def main(argv=None, device="cuda"):
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true",
@@ -119,25 +264,6 @@ def main(argv=None, device="cuda"):
     if args.cpu:
         device = "cpu"
 
-    from ..utils.config import SENSOR_MONOCULAR, SENSOR_RGBD, SENSOR_STEREO, SlamConfig
-    from ..utils.synthetic import (ImperfectCamera, PlateWorld, forward_trajectory,
-                                   loop_trajectory, survey_trajectory)
-
-    if args.small:
-        W, H, fx, nf = 320, 240, 260.0, 600
-        n_survey, n_loop, n_long = 160, 110, 400
-        kw = dict(max_keyframes=128, max_map_points=1 << 14)
-    else:
-        W, H, fx, nf = 640, 480, 517.3, 1000
-        n_survey, n_loop, n_long = 500, 360, 1200
-        # the capacities of bench.py's configuration
-        kw = dict(max_keyframes=128, max_map_points=1 << 14)
-    cx, cy = W / 2, H / 2
-    baseline = 0.25
-    cfg = SlamConfig(fx=fx, fy=fx, cx=cx, cy=cy, width=W, height=H,
-                     bf=fx * baseline, sensor=SENSOR_RGBD, fps=30.0,
-                     th_depth=40.0, n_features=nf, **kw)
-
     # place recognition at the reference's scale (src/System.cc:58-77): the
     # complete k=10/depth=6 (10^6-word) synthetic tree, as bench.py; the tiny
     # on-the-fly vocabulary aliases badly and spams Sim3 attempts
@@ -148,114 +274,29 @@ def main(argv=None, device="cuda"):
 
     results = []
 
-    def run_row(cfg_, cam_, gt_, sensor_, label_, enable_loops=True):
-        results.append(run_sequence(cfg_, cam_, gt_, sensor_, label_,
-                                    enable_loops=enable_loops, vocabulary=voc,
+    def run_row(r):
+        results.append(run_sequence(r.cfg, r.cam, r.gt, r.sensor, r.name,
+                                    enable_loops=r.enable_loops, vocabulary=voc,
                                     result_dir=args.result_dir, device=device))
-        if enable_loops and args.ab_loops:
+        if r.enable_loops and args.ab_loops:
             # open-loop A/B twin: same sequence, loop
             # closing disabled — EVAL.md reports the closure's ATE delta
-            results.append(run_sequence(cfg_, cam_, gt_, sensor_,
-                                        label_ + "-noloop",
+            results.append(run_sequence(r.cfg, r.cam, r.gt, r.sensor, r.name + "-noloop",
                                         enable_loops=False, vocabulary=voc,
                                         result_dir=args.result_dir, device=device))
 
-    if not args.skip_survey:
-        world = PlateWorld(fx, fx, cx, cy, W, H, z0=5.0, extent=14.0,
-                           n_plates=300)
-        cam = ImperfectCamera(world)
-        gt = survey_trajectory(n_survey, extent=9.0, rows=6)
-        run_row(cfg, cam, gt, "rgbd", "survey-rgbd", enable_loops=False)
-    if not args.skip_loop:
-        world = PlateWorld(fx, fx, cx, cy, W, H, z0=5.0)
-        cam = ImperfectCamera(world)
-        gt = loop_trajectory(n_loop, radius=3.0)
-        run_row(cfg, cam, gt, "rgbd", "loop-rgbd", enable_loops=True)
-    if not args.skip_mono:
-        import dataclasses
-        cfg_m = dataclasses.replace(cfg, sensor=SENSOR_MONOCULAR, bf=0.0)
-        world = PlateWorld(fx, fx, cx, cy, W, H, z0=5.0)
-        cam = ImperfectCamera(world, noise_sigma=2.0)
-        gt = loop_trajectory(n_loop, radius=3.0)
-        run_row(cfg_m, cam, gt, "mono", "loop-mono", enable_loops=True)
-    if args.long:
-        # KITTI-00-scale drive: one big loop, hundreds of keyframes —
-        # exercises DB erase, trajectory rehoming, covisibility and the
-        # K-capacity guard; larger capacities so the
-        # KF count can genuinely climb past 200 before culling bounds it
-        import dataclasses as _dc
-        cfg_l = cfg if args.small else _dc.replace(
-            cfg, max_keyframes=256, max_map_points=1 << 15)
-        world = PlateWorld(fx, fx, cx, cy, W, H, z0=5.0, extent=30.0,
-                           n_plates=900, seed=11)
-        # softer photometrics than the survey/loop runs: this sequence tests
-        # CAPACITY at scale (hundreds of KFs, DB erase, rehoming), while the
-        # exposure-torture coverage lives in the other three sequences — at
-        # VGA the default amp=0.25 crest clips ~25% of texture pixels to
-        # saturation (flat patches) and tracking dies at every crest.
-        cam = ImperfectCamera(world, exposure_amp=0.15, noise_sigma=3.0)
-        # speed 0.08 m/frame = 8.3 px/frame optical flow at VGA/517fx/z=5 —
-        # inside the ~13 px/frame envelope the motion-model matcher tracks
-        # through the ImperfectCamera's exposure troughs (0.12 = 12.4 px
-        # measured marginal: inliers crash at the gain-0.75 trough and the
-        # velocity model degrades past the search window). Radius 13.7 m
-        # keeps the circle inside the plate field and below the texture
-        # tile period (no perceptual self-aliasing).
-        gt = forward_trajectory(n_long, speed=0.08, close_loop=True)
-        run_row(cfg_l, cam, gt, "rgbd", "long-forward-rgbd", enable_loops=True)
-    if args.torture:
-        # Torture photometrics variant of the long drive:
-        # exposure_amp 0.25 and 0.12 m/frame — the values the round-4
-        # harness documented as fatal ("inliers crash at the gain-0.75
-        # trough and the velocity model degrades past the search window").
-        # Tracker-envelope work (wide-window retry + RGBD th=3 local search,
-        # src/Tracking.cc:1804-1807) must carry it, not world softening.
-        import dataclasses as _dc
-        cfg_t = cfg if args.small else _dc.replace(
-            cfg, max_keyframes=256, max_map_points=1 << 15)
-        n_tort = 400 if args.small else 900
-        world = PlateWorld(fx, fx, cx, cy, W, H, z0=5.0, extent=30.0,
-                           n_plates=900, seed=11)
-        cam = ImperfectCamera(world, exposure_amp=0.25, noise_sigma=3.0)
-        gt = forward_trajectory(n_tort, speed=0.12, close_loop=True)
-        run_row(cfg_t, cam, gt, "rgbd", "torture-forward-rgbd",
-                enable_loops=True)
-    if args.fig8:
-        # figure-eight at full resolution: drift genuinely disconnects each
-        # crossover revisit, so the complete detect -> Sim3 -> correct ->
-        # essential graph -> (amortized) GBA chain must fire — twice — at
-        # reference scale with the 10^6-word vocabulary.
-        # RGBD and monocular (the 7-DoF correction path).
-        from ..utils.synthetic import figure_eight_trajectory
-        n8 = 220 if args.small else 560
-        world = PlateWorld(fx, fx, cx, cy, W, H, z0=5.0, extent=14.0,
-                           n_plates=400, seed=5)
-        gt = figure_eight_trajectory(n8, radius=3.2)
-        cam = ImperfectCamera(world, noise_sigma=3.0)
-        run_row(cfg, cam, gt, "rgbd", "fig8-rgbd", enable_loops=True)
-        import dataclasses as _dc
-        cfg_m8 = _dc.replace(cfg, sensor=SENSOR_MONOCULAR, bf=0.0)
-        cam = ImperfectCamera(world, noise_sigma=2.0)
-        run_row(cfg_m8, cam, gt, "mono", "fig8-mono", enable_loops=True)
+    names = [name for name, on in (
+        ("survey-rgbd", not args.skip_survey), ("loop-rgbd", not args.skip_loop),
+        ("loop-mono", not args.skip_mono), ("long-forward-rgbd", args.long),
+        ("torture-forward-rgbd", args.torture), ("fig8-rgbd", args.fig8),
+        ("fig8-mono", args.fig8)) if on]
+    for name in names:
+        run_row(row(name, args.small))
     if args.block:
-        # forward-facing street-canyon circuit (the KITTI regime): optical
-        # axis along motion, depth-stratified scene,
-        # 90-degree turns, one big loop around the block. Stereo (the
-        # reference's KITTI sensor — first at-scale evidence for the SAD
-        # matcher) and RGBD.
-        from ..utils.synthetic import (BlockWorld,
-                                                   city_block_trajectory)
-        import dataclasses as _dc
-        n_blk = 300 if args.small else 780
-        world = BlockWorld(fx, fx, cx, cy, W, H)
-        gt = city_block_trajectory(n_blk, corner_radius=6.0, speed=0.15,
-                                   overshoot=0.12)
-        cam = ImperfectCamera(world, noise_sigma=3.0, exposure_amp=0.15)
-        # KITTI-flavored stereo: baseline 0.5 m -> close threshold
-        # th_depth * b = 20 m, like KITTI's 35 * 0.54
-        cfg_st = _dc.replace(cfg, sensor=SENSOR_STEREO, bf=fx * 0.5)
-        run_row(cfg_st, cam, gt, "stereo", "block-stereo", enable_loops=True)
-        run_row(cfg, cam, gt, "rgbd", "block-rgbd", enable_loops=True)
+        # one camera for both block rows, as the evaluation renders them
+        stereo = row("block-stereo", args.small)
+        run_row(stereo)
+        run_row(row("block-rgbd", args.small, cam=stereo.cam))
 
     print("\n== summary ==")
     for r in results:
@@ -267,7 +308,6 @@ def main(argv=None, device="cuda"):
             json.dump(results, f, indent=1)
         print(f"wrote {args.json}")
     return results
-
 
 if __name__ == "__main__":
     main()

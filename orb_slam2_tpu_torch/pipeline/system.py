@@ -532,11 +532,13 @@ class SlamSystem:
                 self.reset()
                 self._record(timestamp, np.eye(4), 0, True)
                 self.metrics.append(dict(frame=self.frame_id, state="RESET",
-                                         inliers=n_local_inl))
+                                         inliers=n_local_inl, fallback=bool(sc[7]),
+                                         retry=bool(sc[10])))
                 return None
             self.state = LOST
             self._record(timestamp, np.eye(4), self.ref_kf, True)
-            self.metrics.append(dict(frame=self.frame_id, state="LOST", inliers=n_local_inl))
+            self.metrics.append(dict(frame=self.frame_id, state="LOST", inliers=n_local_inl,
+                                     fallback=bool(sc[7]), retry=bool(sc[10])))
             return None
 
         self.state = OK
@@ -567,9 +569,10 @@ class SlamSystem:
         entry = dict(frame=self.frame_id, state="OK", inliers=n_local_inl, kf=bool(need_kf),
                      n_kf=self._nkf_cache() if need_kf else None,
                      # motion-model matches, their pose inliers, the reference
-                     # keyframe's tracked matches, whether the fallback ran
+                     # keyframe's tracked matches, whether the fallback and the
+                     # wide-window retry ran
                      n_mm=int(sc[1]), mm_inl=int(sc[2]), ref_matches=int(sc[4]),
-                     fallback=bool(sc[7]))
+                     fallback=bool(sc[7]), retry=bool(sc[10]))
         if need_kf:
             entry["stage_ms"] = self.stage_ms
         self.metrics.append(entry)

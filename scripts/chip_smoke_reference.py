@@ -4,7 +4,7 @@ smoke run), measured on the CPU with the reference package's XLA path.
 
     env JAX_PLATFORMS=cpu python scripts/chip_smoke_reference.py \
         [--system-only | --loop-only | --split-only | --stereo-only | --mono-only |
-         --stream-only | --files-only]
+         --stream-only | --files-only | --eval-only | --rows-only [NAME ...] [--sim3-key K]]
 
 It renders chip_smoke's frames (the reference bench's first N_FRAMES poses,
 640x480, 1000 features, RGB-D), extracts them with the port's front end (as
@@ -31,6 +31,14 @@ path (the stream's step patched to take the frame as its images, as
 keyframe frames and the ATE of a synchronous lap; a kidnap (state LOST, the
 render of pose KIDNAP_POSE) and its camera-centre error; a fresh system
 with pipeline_depth=3 and its flush, with the same records.
+
+`--rows-only [NAME ...] [--sim3-key K]` gives `scripts/chip_eval_rows.py`'s
+numbers (`REFERENCE_ROWS`): the reference SlamSystem over each row of the
+evaluation (`eval_synthetic_hard.row`, all of them by default) handed the
+port's frames (`row_lap`), with each Sim3 RANSAC key folded with K where
+K > 0 (another set of draws for the loop closures). `--eval-only` gives
+the `[eval]` phase's (`REFERENCE_EVAL`): the torture row's first
+EVAL_FRAMES frames.
 
 `--loop-only` gives the `[loop]` phase's numbers (`REFERENCE_LOOP`): the
 reference `SlamSystem` with its defaults (loop closing on, 4 amortized GBA
@@ -256,7 +264,7 @@ def system_laps(jcfg, poses, jf):
 
 
 def sensor_lap(jcfg, poses, frame_at, key_offset=0, depth=0, mapping_device=None,
-               vocabulary="synth", timestamps=None):
+               vocabulary="synth", timestamps=None, enable_loops=True):
     """The reference SlamSystem with its defaults (loop closing on, 4
     amortized GBA chunks, the natural keyframe policy,
     `synth_vocabulary(10, 6)`) over the sequence, handed the port's frames
@@ -267,8 +275,8 @@ def sensor_lap(jcfg, poses, frame_at, key_offset=0, depth=0, mapping_device=None
     system streams at that depth (with `mapping_device`, the tracking /
     mapping split). vocabulary "synth" is `synth_vocabulary(10, 6)`, None
     the tree trained on the fly (as the example scripts construct the system);
-    timestamps default to i / fps. Returns the records chip_smoke holds a
-    phase to."""
+    timestamps default to i / fps; enable_loops=False turns loop closing
+    off. Returns the records chip_smoke holds a phase to."""
     from orb_slam2_tpu.bow import vocabulary as jvoc
     from orb_slam2_tpu.pipeline import loop_closing as jlc
     from orb_slam2_tpu.pipeline import system as jsystem
@@ -281,7 +289,7 @@ def sensor_lap(jcfg, poses, frame_at, key_offset=0, depth=0, mapping_device=None
     jts.full_tracking_step_from_images = \
         lambda cfg, m, f, *rest: jts.full_tracking_step(cfg, m, f, *rest[:-1])
     s = jsystem.SlamSystem(jcfg, vocabulary=voc, pipeline_depth=depth,
-                           mapping_device=mapping_device)
+                           mapping_device=mapping_device, enable_loop_closing=enable_loops)
     mono = jcfg.sensor == jconfig.SENSOR_MONOCULAR
     closures, detections = [], []
     correct_loop, dispatch, initialize = jlc.correct_loop, jlc.detect_loop_dispatch, \
@@ -336,6 +344,7 @@ def sensor_lap(jcfg, poses, frame_at, key_offset=0, depth=0, mapping_device=None
                 points=int(s.m.n_points), init_frame=init_frame,
                 kf_frames=sorted(e["frame"] for e in s.metrics if e.get("kf")),
                 states=states,
+                fallback_frames=[e["frame"] for e in s.metrics if e.get("fallback")],
                 loop_edge_frames=[[int(fid[i]), int(fid[j])]
                                   for i, j in np.asarray(s.m.loop_edges) if i >= 0],
                 ate_m=round(jtraj.ate_rmse(traj, gt, with_scale=mono), 6))
@@ -381,6 +390,92 @@ def files_laps():
     return out
 
 
+def jax_config(tcfg):
+    """The reference's SlamConfig equal to the port's tcfg (XLA path)."""
+    jcfg = jconfig.SlamConfig(use_pallas=0, **{
+        k: getattr(tcfg, k) for k in ("fx", "fy", "cx", "cy", "width", "height", "bf", "sensor",
+                                      "fps", "th_depth", "n_features", "max_keyframes",
+                                      "max_map_points")})
+    from orb_slam2_tpu_torch.utils import convert
+    assert convert.config_from_jax(jcfg) == tcfg
+    return jcfg
+
+
+def sim3_keyed(k):
+    """Fold k into every Sim3 RANSAC key of the reference's loop closing
+    (compute_sim3 keys PRNGKey(kf_id * 977 + cand_id)): another set of
+    draws for k > 0, the reference's own for k = 0. Returns the saved
+    solver (restore it with `jlc.sim3_solver.ransac_sim3 = saved`)."""
+    from orb_slam2_tpu.pipeline import loop_closing as jlc
+    saved = jlc.sim3_solver.ransac_sim3
+    if k:
+        jlc.sim3_solver.ransac_sim3 = \
+            lambda *a, key, **kw: saved(*a, key=jax.random.fold_in(key, k), **kw)
+    return saved
+
+
+def row_lap(name, n=None):
+    """The reference SlamSystem (`sensor_lap`) over the first n frames (all
+    by default) of the evaluation row `name`
+    (`orb_slam2_tpu_torch.examples.eval_synthetic_hard.row`), with the row's
+    config and loop closing as the row sets it, handed the port's CPU
+    extraction of the port's renders; loop-mono three times, RANSAC keys
+    frame_id + k, k < MONO_KEYS. Returns the record (a list of three for
+    loop-mono): the frames tracked, the keyframes inserted and kept, the
+    points, the loops and their closures, the keyframe frames, the states
+    of the first SEQ_FRAMES_CHECKED frames, the frames not tracked, the
+    frames that fell back to the reference keyframe (the reference's
+    scalars[7]; its wide-window retry is a `lax.cond` inside the jitted
+    step, and no returned count shows it), the ATE and the wall time."""
+    import torch
+    import chip_smoke as cs
+    from orb_slam2_tpu.pipeline import system as jsystem
+    from orb_slam2_tpu_torch.examples import eval_synthetic_hard as ev
+    from orb_slam2_tpu_torch.pipeline import frame as tframe
+
+    r = ev.row(name)
+    jcfg = jax_config(r.cfg)
+    poses = r.gt[:n]
+    t = torch.from_numpy
+    t0 = time.perf_counter()
+
+    def extract(images, init=False):
+        sensor, a, b = images
+        if sensor == "stereo":
+            return jax_frame(tframe.make_frame_stereo(t(a), t(b), r.cfg))
+        if sensor == "rgbd":
+            return jax_frame(tframe.make_frame_rgbd(t(a), t(b), r.cfg))
+        return jax_frame(tframe.make_frame_monocular(t(a), r.cfg, init=init))
+
+    if r.sensor == "mono":
+        grays = [a for _, a, _ in ev.row_frames(r, n, workers=2)]
+        cache = {}
+
+        def frame_at(i, init):
+            if (i, init) not in cache:
+                cache[(i, init)] = extract(("mono", grays[i], None), init)
+            return cache[(i, init)]
+        keys = range(MONO_KEYS)
+    else:
+        frames = ev.row_frames(r, n, workers=2)
+
+        def frame_at(i, init):
+            return extract(next(frames))
+        keys = [0]
+    runs = []
+    for k in keys:
+        rec = sensor_lap(jcfg, poses, frame_at, key_offset=k, enable_loops=r.enable_loops)
+        states = rec.pop("states")
+        rec.pop("loop_edge_frames")
+        rec.update(frames=len(poses), states=states[:cs.SEQ_FRAMES_CHECKED],
+                   lost_frames=[i for i, st in enumerate(states) if st != jsystem.OK],
+                   wall_s=round(time.perf_counter() - t0, 1))
+        print(f"{name} (key offset {k}): {rec}", flush=True)
+        runs.append(rec)
+        t0 = time.perf_counter()
+    return runs if r.sensor == "mono" else runs[0]
+
+
 def loop_lap(jcfg, poses, jf):
     """The reference SlamSystem's records for chip_smoke's [loop] phase."""
     return sensor_lap(jcfg, poses, lambda i, init: jf[i])
@@ -393,12 +488,31 @@ def main():
     from orb_slam2_tpu_torch.utils import convert
 
     t0 = time.perf_counter()
+    if "--rows-only" in sys.argv:
+        from orb_slam2_tpu_torch.examples import eval_synthetic_hard as ev
+        from orb_slam2_tpu.pipeline import loop_closing as jlc
+        args = sys.argv[sys.argv.index("--rows-only") + 1:]
+        key = 0
+        if "--sim3-key" in args:
+            key = int(args[args.index("--sim3-key") + 1])
+            args = args[:args.index("--sim3-key")]
+        saved = sim3_keyed(key)
+        try:
+            rows = {name: row_lap(name) for name in args or list(ev.ROWS)}
+        finally:
+            jlc.sim3_solver.ransac_sim3 = saved
+        if key:
+            print(f"Sim3 RANSAC keys folded with {key}")
+        print(f"REFERENCE_ROWS = {rows}")
+        print(f"jax {jax.__version__}, {time.perf_counter() - t0:.0f} s")
+        return
+    if "--eval-only" in sys.argv:
+        rec = row_lap("torture-forward-rgbd", cs.EVAL_FRAMES)
+        print(f"REFERENCE_EVAL = {rec}")
+        print(f"jax {jax.__version__}, {time.perf_counter() - t0:.0f} s")
+        return
     tcfg = cs.bench_config()
-    jcfg = jconfig.SlamConfig(use_pallas=0, **{
-        k: getattr(tcfg, k) for k in ("fx", "fy", "cx", "cy", "width", "height", "bf", "sensor",
-                                      "fps", "th_depth", "n_features", "max_keyframes",
-                                      "max_map_points")})
-    assert convert.config_from_jax(jcfg) == tcfg
+    jcfg = jax_config(tcfg)
     if "--stereo-only" in sys.argv:
         tcfg = cs.block_config()
         jcfg = dataclasses.replace(jcfg, sensor=tcfg.sensor, bf=tcfg.bf)
