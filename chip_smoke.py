@@ -2136,6 +2136,43 @@ def closure_misses(n_loops, got, closure_nb, ref, poses, extra_loops=False):
     return misses
 
 
+def check_row(rec, ref, poses):
+    """An evaluation row's record (`rec`: frames, tracked, keyframes_inserted,
+    loops, closures each with its candidate's covisible frames under
+    cand_neighbour_frames, ate_m) against the reference's (`ref`; a list of
+    runs for loop-mono), poses the row's ground truth (camera-to-world):
+    LOOP_TRACKED_FLOOR of the frames tracked (above the evaluation's 90 %
+    "ok"), the keyframes inserted within KF_COUNT_SLACK of the reference's
+    (of its runs' range), the reference's closures with any other genuine
+    (`closure_misses`; against several runs: at least the fewest runs'
+    loops, each genuine), the ATE at most 2x the reference's (its runs'
+    largest) + 1 cm. Returns what is wrong (empty when nothing is)."""
+    misses = []
+    n = rec["frames"]
+    if rec["tracked"] < LOOP_TRACKED_FLOOR * n:
+        misses.append(f"{rec['tracked']} of {n} frames tracked")
+    runs = ref if isinstance(ref, list) else [ref]
+    kf = [r["keyframes_inserted"] for r in runs]
+    if not (1 - KF_COUNT_SLACK) * min(kf) <= rec["keyframes_inserted"] <= \
+            (1 + KF_COUNT_SLACK) * max(kf):
+        misses.append(f"{rec['keyframes_inserted']} keyframes inserted, the reference {kf}")
+    if isinstance(ref, list):
+        if rec["loops"] < min(r["loops"] for r in runs):
+            misses.append(f"{rec['loops']} loops closed, the reference runs "
+                          f"{[r['loops'] for r in runs]}")
+        if any(not _genuine(poses, c) for c in rec["closures"]):
+            misses.append(f"a closure joins two places: "
+                          f"{[(c['kf_frame'], c['cand_frame']) for c in rec['closures']]}")
+    else:
+        misses += closure_misses(rec["loops"], rec["closures"],
+                                 [c["cand_neighbour_frames"] for c in rec["closures"]], ref,
+                                 poses, extra_loops=True)
+    worst = max(r["ate_m"] for r in runs)
+    if not rec["ate_m"] <= 2 * worst + 0.01:
+        misses.append(f"ATE {rec['ate_m']:.4f} m > 2 x the reference's {worst:.4f} m + 1 cm")
+    return misses
+
+
 def _loop_check(cfg, s, poses, closure_nb, ref, tag="[loop]", extra_loops=False):
     """The run against the reference's: its closures (`closure_misses`),
     the frames tracked, the ATE, a finite map, the loop edges. Returns (the
@@ -3942,13 +3979,11 @@ def eval_phase(voc, dev, card):
     falls to 0.75 at frame 135), rendered on threads ahead of the tracker,
     through SlamSystem.track_rgbd synchronously with loop closing on, then
     flush(): checked against REFERENCE_EVAL (the states of the first
-    SEQ_FRAMES_CHECKED frames, LOOP_TRACKED_FLOOR of the frames tracked, the
-    keyframes inserted within KF_COUNT_SLACK, the ATE within 2x + 1 cm, the
-    reference's closures and any other genuine), a finite map, every kernel
-    of PATH_KERNELS launched. Logged: the frames that took the wide-window
-    retry (the step's scalars[10]) and the fallback to the reference
-    keyframe. Counts set to 0 before the lap, read after. Returns
-    (launches, results)."""
+    SEQ_FRAMES_CHECKED frames, then the evaluation rows' bands, `check_row`),
+    a finite map, every kernel of PATH_KERNELS launched. Logged: the frames
+    that took the wide-window retry (the step's scalars[10]) and the
+    fallback to the reference keyframe. Counts set to 0 before the lap, read
+    after. Returns (launches, results)."""
     r = ev.row("torture-forward-rgbd")
     poses = r.gt[:EVAL_FRAMES]
     frames = ((a, b) for _, a, b in ev.row_frames(r, EVAL_FRAMES, ahead=RENDER_AHEAD))
@@ -3978,16 +4013,10 @@ def eval_phase(voc, dev, card):
     if got_states != ref["states"]:
         raise AssertionError(f"[eval] states of frames 0-{SEQ_FRAMES_CHECKED - 1} {got_states}, "
                              f"the reference's {ref['states']}")
-    if len(traj) < LOOP_TRACKED_FLOOR * len(poses):
-        raise AssertionError(f"[eval] {len(traj)} of {len(poses)} frames tracked")
-    k_ref = ref["keyframes_inserted"]
-    if abs(s._kf_seq_host - k_ref) > KF_COUNT_SLACK * k_ref:
-        raise AssertionError(f"[eval] {s._kf_seq_host} keyframes inserted, the reference {k_ref}")
-    if not ate <= 2 * ref["ate_m"] + 0.01:
-        raise AssertionError(f"[eval] ATE {ate:.4f} m > 2 x the reference's {ref['ate_m']:.4f} "
-                             f"m + 1 cm")
-    misses = closure_misses(s.n_loops_closed, s.loop_closures, closure_nb, ref, poses,
-                            extra_loops=True)
+    closures = [dict(c, cand_neighbour_frames=nb) for c, nb in zip(s.loop_closures, closure_nb)]
+    misses = check_row(dict(frames=len(poses), tracked=len(traj),
+                            keyframes_inserted=s._kf_seq_host, loops=s.n_loops_closed,
+                            closures=closures, ate_m=ate), ref, poses)
     if misses:
         raise AssertionError(f"[eval] {misses[0]}")
     bad = _map_finite(s.m)

@@ -532,13 +532,11 @@ class SlamSystem:
                 self.reset()
                 self._record(timestamp, np.eye(4), 0, True)
                 self.metrics.append(dict(frame=self.frame_id, state="RESET",
-                                         inliers=n_local_inl, fallback=bool(sc[7]),
-                                         retry=bool(sc[10])))
+                                         inliers=n_local_inl))
                 return None
             self.state = LOST
             self._record(timestamp, np.eye(4), self.ref_kf, True)
-            self.metrics.append(dict(frame=self.frame_id, state="LOST", inliers=n_local_inl,
-                                     fallback=bool(sc[7]), retry=bool(sc[10])))
+            self.metrics.append(dict(frame=self.frame_id, state="LOST", inliers=n_local_inl))
             return None
 
         self.state = OK

@@ -16,15 +16,11 @@ tracker (`row_frames`, chip_smoke.RENDER_AHEAD), then flush().
 
 Each row is held to REFERENCE_ROWS (`scripts/chip_smoke_reference.py
 --rows-only`: the JAX SlamSystem on the CPU handed the port's CPU
-extraction of the same renders) with chip_smoke's bands (`check_row`): at
-least LOOP_TRACKED_FLOOR of the frames tracked (so at least the row's
-COVERAGE_FLOOR), the reference's closures with another only where it is
-genuine (`chip_smoke.closure_misses`; loop-mono: at least the fewest of
-its three reference runs' closures, each genuine), keyframes inserted
-within KF_SLACK of the reference's (loop-mono: of its runs' range), the ATE
-at most 2x the reference's + 1 cm (loop-mono: Sim3-aligned, 2x its runs'
-largest + 1 cm), a finite map. At the first global BA of each row that runs
-one, K9's assembly (at C = 256, E = 393,216 on the two forward rows, where
+extraction of the same renders) with chip_smoke's bands
+(`chip_smoke.check_row`: the frames tracked, the keyframes inserted, the
+closures, the ATE; loop-mono against the range of its three reference
+runs, Sim3-aligned) and a finite map. At the first global BA of each row
+that runs one, K9's assembly (at C = 256, E = 393,216 on the two forward rows, where
 the global BA takes the PCG branch) is checked against its twin bit for
 bit (`chip_smoke._lin_equal`, as the K9 GPU tests hold it) and timed
 (`chip_smoke._queued_ms`) beside its bound.
@@ -35,11 +31,10 @@ frame's ms, each kernel's launches over the lap (counts set to 0 just
 before it), the frames that took the wide-window retry, the fallback to
 the reference keyframe and a relocalization, and the global BA's branch
 (dense or PCG) at each call. Prints one {"rows": [...]} JSON line (and
-writes it to --out). For a diagnosis: --sim3-keys K ... runs each row once
-per key (`_Sim3Key`: 0 the port's own Sim3 RANSAC draws, another set for
-K > 0); --twins NAME ... runs those kernels' plain twins on the card
-instead (another float order). Exits non-zero when any row fails a check,
-after all the rows selected ran. Needs CUDA. Imports nothing of JAX.
+writes it to --out). For a diagnosis, --twins NAME ... runs those kernels'
+plain twins on the card instead (another float order). Exits non-zero when
+any row fails a check, after all the rows selected ran. Needs CUDA.
+Imports nothing of JAX.
 """
 import argparse
 import json
@@ -61,10 +56,8 @@ from orb_slam2_tpu_torch.pipeline import loop_closing, system  # noqa: E402
 from orb_slam2_tpu_torch.solvers import pcg_ba, schur_ba  # noqa: E402
 from orb_slam2_tpu_torch.utils import trajectory  # noqa: E402
 
-ROWS = ("survey-rgbd", "loop-rgbd", "loop-mono", "long-forward-rgbd", "torture-forward-rgbd",
-        "block-rgbd", "block-stereo")
-COVERAGE_FLOOR = 0.9        # the evaluation's "ok": a row tracking less is a failure
-KF_SLACK = cs.KF_COUNT_SLACK   # keyframes inserted against the reference's, a share
+# the rows the smoke does not drive at full length (its [loop] and [mono] run fig8)
+ROWS = tuple(name for name in ev.ROWS if not name.startswith("fig8"))
 
 # What the reference (orb_slam2_tpu, XLA path) gives on each row handed the
 # port's CPU frames: `scripts/chip_smoke_reference.py --rows-only` (its
@@ -245,36 +238,6 @@ REFERENCE_ROWS = {
 }
 
 
-def check_row(name, rec, ref, poses):
-    """Row `name`'s record on the card (`rec`) against the reference's
-    (`ref`; a list of runs for loop-mono), poses the row's ground truth
-    (camera-to-world). Returns what is wrong (empty when nothing is)."""
-    misses = []
-    n = rec["frames"]
-    if rec["tracked"] < cs.LOOP_TRACKED_FLOOR * n or rec["tracked"] < COVERAGE_FLOOR * n:
-        misses.append(f"{rec['tracked']} of {n} frames tracked")
-    runs = ref if isinstance(ref, list) else [ref]
-    kf = [r["keyframes_inserted"] for r in runs]
-    if not (1 - KF_SLACK) * min(kf) <= rec["keyframes_inserted"] <= (1 + KF_SLACK) * max(kf):
-        misses.append(f"{rec['keyframes_inserted']} keyframes inserted, the reference {kf}")
-    if isinstance(ref, list):
-        fewest = min(r["loops"] for r in runs)
-        if rec["loops"] < fewest:
-            misses.append(f"{rec['loops']} loops closed, the reference runs "
-                          f"{[r['loops'] for r in runs]}")
-        if any(not cs._genuine(poses, c) for c in rec["closures"]):
-            misses.append(f"a closure joins two places: "
-                          f"{[(c['kf_frame'], c['cand_frame']) for c in rec['closures']]}")
-    else:
-        misses += cs.closure_misses(rec["loops"], rec["closures"],
-                                    [c["cand_neighbour_frames"] for c in rec["closures"]], ref,
-                                    poses, extra_loops=True)
-    worst = max(r["ate_m"] for r in runs)
-    if not rec["ate_m"] <= 2 * worst + 0.01:
-        misses.append(f"ATE {rec['ate_m']:.4f} m > 2 x the reference's {worst:.4f} m + 1 cm")
-    return misses
-
-
 def _frames(r):
     """Row r's frames as `chip_smoke._track_frame` takes them."""
     for sensor, a, b in ev.row_frames(r, ahead=cs.RENDER_AHEAD):
@@ -340,32 +303,11 @@ def _k9_at_gba(name, k9, card):
     return res
 
 
-class _Sim3Key:
-    """Another set of Sim3 RANSAC draws for the loop closures: each
-    generator loop closing seeds (kf_id * 977 + cand_id) reseeded with that
-    seed * 1,000,003 + k; k = 0 leaves the port's own draws."""
-
-    def __init__(self, k):
-        self.k = k
-
-    def __enter__(self):
-        self.saved = saved = loop_closing.sim3_solver.ransac_sim3
-        if self.k:
-            def ransac_sim3(*args, generator, **kw):
-                seed = generator.initial_seed() * 1_000_003 + self.k
-                return saved(*args, generator=torch.Generator().manual_seed(seed), **kw)
-            loop_closing.sim3_solver.ransac_sim3 = ransac_sim3
-        return self
-
-    def __exit__(self, *exc):
-        loop_closing.sim3_solver.ransac_sim3 = self.saved
-
-
-def run_row(name, voc, dev, card, sim3_key=0, twin=()):
-    """Row `name` through the port's SlamSystem on the card (with
-    `_Sim3Key(sim3_key)`); returns its record with the checks' misses under
-    "misses". The kernels named in `twin` run their plain twins on the
-    card (`chip_smoke.twins`): another float order than the kernel path's."""
+def run_row(name, voc, dev, card, twin=()):
+    """Row `name` through the port's SlamSystem on the card; returns its
+    record with the checks' misses under "misses". The kernels named in
+    `twin` run their plain twins on the card (`chip_smoke.twins`): another
+    float order than the kernel path's."""
     r = ev.row(name)
     mono = r.sensor == "mono"
     times, states, closure_nb = [], [], []
@@ -373,7 +315,7 @@ def run_row(name, voc, dev, card, sim3_key=0, twin=()):
     launch.reset_launches()
     t0 = time.perf_counter()
     keep = tuple(k for k in cs.WRAPPERS if k not in twin)
-    with cs.twins(keep), _GlobalBA() as gba, _Sim3Key(sim3_key):
+    with cs.twins(keep), _GlobalBA() as gba:
         s = cs._loop_lap(r.cfg, voc, _frames(r), dev, times, closure_nb=closure_nb,
                          states=states, enable_loops=r.enable_loops)
     lap_s = time.perf_counter() - t0
@@ -385,7 +327,7 @@ def run_row(name, voc, dev, card, sim3_key=0, twin=()):
     plain_ms, kf_ms, closure_ms = cs._split_kf(times, s.metrics,
                                                [c["kf_frame"] for c in closures])
     lost = [i for i, st in enumerate(states) if st != system.OK]
-    rec = {"name": name, "sim3_key": sim3_key, "twins": list(twin), "frames": len(r.gt),
+    rec = {"name": name, "twins": list(twin), "frames": len(r.gt),
            "tracked": len(traj),
            "loops": s.n_loops_closed,
            "closures": closures, "keyframes_inserted": s._kf_seq_host,
@@ -402,7 +344,7 @@ def run_row(name, voc, dev, card, sim3_key=0, twin=()):
            "gba_branches": gba.branches, "launches": launches}
     ref = REFERENCE_ROWS.get(name)
     runs = [] if ref is None else ref if isinstance(ref, list) else [ref]
-    rec["misses"] = ["no reference record"] if ref is None else check_row(name, rec, ref, r.gt)
+    rec["misses"] = ["no reference record"] if ref is None else cs.check_row(rec, ref, r.gt)
     bad = cs._map_finite(s.m)
     if bad:
         rec["misses"].append(f"non-finite {bad} in the map")
@@ -429,9 +371,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", nargs="+", default=list(ROWS), choices=ROWS)
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "eval_rows.json"))
-    ap.add_argument("--sim3-keys", type=int, nargs="+", default=[0],
-                    help="run each row once per key: 0 the port's own Sim3 RANSAC draws, "
-                         "k > 0 another set (`_Sim3Key`)")
     ap.add_argument("--twins", nargs="+", default=[], choices=list(cs.WRAPPERS),
                     help="kernels whose plain twins run on the card instead")
     args = ap.parse_args(argv)
@@ -440,8 +379,7 @@ def main(argv=None):
     torch.cuda.set_device(dev)
     cs.build_phase()
     voc = synth_vocabulary(10, 6, device=dev)
-    rows = [run_row(name, voc, dev, card, k, tuple(args.twins)) for name in args.rows
-            for k in args.sim3_keys]
+    rows = [run_row(name, voc, dev, card, tuple(args.twins)) for name in args.rows]
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     line = json.dumps({"card": card, "rows": rows}, default=float)
@@ -449,7 +387,7 @@ def main(argv=None):
     with open(args.out, "w") as f:
         f.write(line + "\n")
     print(line, flush=True)
-    failed = {f"{r['name']} (Sim3 key {r['sim3_key']}, twins {r['twins']})": r["misses"]
+    failed = {f"{r['name']} (twins {r['twins']})": r["misses"]
               for r in rows if r["misses"]}
     if failed:
         raise SystemExit(f"chip_eval_rows: rows outside their bands: {failed}")

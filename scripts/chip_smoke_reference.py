@@ -4,7 +4,7 @@ smoke run), measured on the CPU with the reference package's XLA path.
 
     env JAX_PLATFORMS=cpu python scripts/chip_smoke_reference.py \
         [--system-only | --loop-only | --split-only | --stereo-only | --mono-only |
-         --stream-only | --files-only | --eval-only | --rows-only [NAME ...] [--sim3-key K]]
+         --stream-only | --files-only | --eval-only | --rows-only [NAME ...]]
 
 It renders chip_smoke's frames (the reference bench's first N_FRAMES poses,
 640x480, 1000 features, RGB-D), extracts them with the port's front end (as
@@ -32,11 +32,10 @@ keyframe frames and the ATE of a synchronous lap; a kidnap (state LOST, the
 render of pose KIDNAP_POSE) and its camera-centre error; a fresh system
 with pipeline_depth=3 and its flush, with the same records.
 
-`--rows-only [NAME ...] [--sim3-key K]` gives `scripts/chip_eval_rows.py`'s
-numbers (`REFERENCE_ROWS`): the reference SlamSystem over each row of the
+`--rows-only [NAME ...]` gives `scripts/chip_eval_rows.py`'s numbers
+(`REFERENCE_ROWS`): the reference SlamSystem over each row of the
 evaluation (`eval_synthetic_hard.row`, all of them by default) handed the
-port's frames (`row_lap`), with each Sim3 RANSAC key folded with K where
-K > 0 (another set of draws for the loop closures). `--eval-only` gives
+port's frames (`row_lap`). `--eval-only` gives
 the `[eval]` phase's (`REFERENCE_EVAL`): the torture row's first
 EVAL_FRAMES frames.
 
@@ -401,19 +400,6 @@ def jax_config(tcfg):
     return jcfg
 
 
-def sim3_keyed(k):
-    """Fold k into every Sim3 RANSAC key of the reference's loop closing
-    (compute_sim3 keys PRNGKey(kf_id * 977 + cand_id)): another set of
-    draws for k > 0, the reference's own for k = 0. Returns the saved
-    solver (restore it with `jlc.sim3_solver.ransac_sim3 = saved`)."""
-    from orb_slam2_tpu.pipeline import loop_closing as jlc
-    saved = jlc.sim3_solver.ransac_sim3
-    if k:
-        jlc.sim3_solver.ransac_sim3 = \
-            lambda *a, key, **kw: saved(*a, key=jax.random.fold_in(key, k), **kw)
-    return saved
-
-
 def row_lap(name, n=None):
     """The reference SlamSystem (`sensor_lap`) over the first n frames (all
     by default) of the evaluation row `name`
@@ -490,19 +476,8 @@ def main():
     t0 = time.perf_counter()
     if "--rows-only" in sys.argv:
         from orb_slam2_tpu_torch.examples import eval_synthetic_hard as ev
-        from orb_slam2_tpu.pipeline import loop_closing as jlc
-        args = sys.argv[sys.argv.index("--rows-only") + 1:]
-        key = 0
-        if "--sim3-key" in args:
-            key = int(args[args.index("--sim3-key") + 1])
-            args = args[:args.index("--sim3-key")]
-        saved = sim3_keyed(key)
-        try:
-            rows = {name: row_lap(name) for name in args or list(ev.ROWS)}
-        finally:
-            jlc.sim3_solver.ransac_sim3 = saved
-        if key:
-            print(f"Sim3 RANSAC keys folded with {key}")
+        names = sys.argv[sys.argv.index("--rows-only") + 1:] or list(ev.ROWS)
+        rows = {name: row_lap(name) for name in names}
         print(f"REFERENCE_ROWS = {rows}")
         print(f"jax {jax.__version__}, {time.perf_counter() - t0:.0f} s")
         return
