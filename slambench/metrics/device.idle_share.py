@@ -1,0 +1,9 @@
+"""device.idle_share (device): the share of the traced window in which no
+device activity ran, in %."""
+
+
+def read(ctx):
+    tr = ctx.get("trace")
+    if tr is None or tr.window_s <= 0 or tr.n_activities == 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
