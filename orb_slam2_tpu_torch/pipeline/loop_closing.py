@@ -36,6 +36,7 @@ from ..mapstate import map as mapstate
 from ..ops import matching
 from ..parallel import sharded_ba, sharded_pose_graph
 from ..solvers import pcg_ba, pose_graph, schur_ba, sim3_solver
+from ..utils import spans
 from ..utils.config import SlamConfig, SENSOR_MONOCULAR
 from . import mapping_ops
 from .frame import _camera
@@ -492,19 +493,21 @@ def global_ba_problem(cfg: SlamConfig, m: mapstate.MapState) -> schur_ba.BAProbl
     """Every keyframe and every point, the first keyframe held fixed, each
     point's first ba_max_obs observations: C = capacity_kf cameras,
     Q x O = capacity_pt x ba_max_obs edges."""
-    K = m.capacity_kf
-    obs_kf, obs_ft, obs_on = mapstate.point_observations(m, max_obs=cfg.ba_max_obs)
-    kfc = torch.clamp(obs_kf, 0, K - 1).long()
-    ftc = torch.clamp(obs_ft, 0, m.n_feat - 1).long()
-    first = torch.argmin(torch.where(m.kf_valid, m.kf_frame_id,
-                                     torch.full_like(m.kf_frame_id, 1 << 30)))
-    cam_fixed = torch.zeros((K,), dtype=torch.bool, device=m.covis.device).index_fill(
-        0, first.view(1), True)
-    return schur_ba.BAProblem(
-        poses=m.kf_pose, cam_valid=m.kf_valid, cam_fixed=cam_fixed, points=m.pt_pos,
-        pt_valid=m.pt_valid, obs_cam=torch.where(obs_on, obs_kf, torch.full_like(obs_kf, INVALID)),
-        obs_uvr=torch.cat([m.kf_xy[kfc, ftc], m.kf_ur[kfc, ftc][..., None]], dim=-1),
-        obs_level=m.kf_level[kfc, ftc])
+    with spans.span("loop_closing.ba_problem"):
+        K = m.capacity_kf
+        obs_kf, obs_ft, obs_on = mapstate.point_observations(m, max_obs=cfg.ba_max_obs)
+        kfc = torch.clamp(obs_kf, 0, K - 1).long()
+        ftc = torch.clamp(obs_ft, 0, m.n_feat - 1).long()
+        first = torch.argmin(torch.where(m.kf_valid, m.kf_frame_id,
+                                         torch.full_like(m.kf_frame_id, 1 << 30)))
+        cam_fixed = torch.zeros((K,), dtype=torch.bool, device=m.covis.device).index_fill(
+            0, first.view(1), True)
+        return schur_ba.BAProblem(
+            poses=m.kf_pose, cam_valid=m.kf_valid, cam_fixed=cam_fixed, points=m.pt_pos,
+            pt_valid=m.pt_valid,
+            obs_cam=torch.where(obs_on, obs_kf, torch.full_like(obs_kf, INVALID)),
+            obs_uvr=torch.cat([m.kf_xy[kfc, ftc], m.kf_ur[kfc, ftc][..., None]], dim=-1),
+            obs_level=m.kf_level[kfc, ftc])
 
 
 def run_global_ba(cfg: SlamConfig, m: mapstate.MapState, mesh=None, n_iters: int = 10):
@@ -514,20 +517,21 @@ def run_global_ba(cfg: SlamConfig, m: mapstate.MapState, mesh=None, n_iters: int
     floats, fits in DENSE_GBA_BYTES, else PCG on the implicit Schur
     complement; each sharded over the points if a mesh is given. The
     robust kernel is off."""
-    prob = global_ba_problem(cfg, m)
-    cam = _camera(cfg, m.covis.device)
-    dense = prob.points.shape[0] * m.capacity_kf * 18 * 4 <= DENSE_GBA_BYTES
-    if mesh is not None and dense:
-        res = sharded_ba.solve_global_ba_sharded(cam, prob, cfg.level_sigma2, mesh,
-                                                 n_iters=n_iters, robust=False)
-    elif mesh is not None:
-        res = pcg_ba.solve_ba_pcg_sharded(cam, prob, cfg.level_sigma2, mesh, n_iters=n_iters)
-    elif not dense:
-        res = pcg_ba.solve_ba_pcg(cam, prob, cfg.level_sigma2, n_iters=n_iters)
-    else:
-        res = schur_ba.solve_ba(cam, prob, cfg.level_sigma2, iters_a=n_iters, iters_b=0,
-                                robust=False)
-    return m._replace(
-        kf_pose=torch.where((prob.cam_valid & ~prob.cam_fixed)[:, None, None], res.poses,
-                            m.kf_pose),
-        pt_pos=torch.where(m.pt_valid[:, None], res.points, m.pt_pos))
+    with spans.span("loop_closing.global_ba"):
+        prob = global_ba_problem(cfg, m)
+        cam = _camera(cfg, m.covis.device)
+        dense = prob.points.shape[0] * m.capacity_kf * 18 * 4 <= DENSE_GBA_BYTES
+        if mesh is not None and dense:
+            res = sharded_ba.solve_global_ba_sharded(cam, prob, cfg.level_sigma2, mesh,
+                                                     n_iters=n_iters, robust=False)
+        elif mesh is not None:
+            res = pcg_ba.solve_ba_pcg_sharded(cam, prob, cfg.level_sigma2, mesh, n_iters=n_iters)
+        elif not dense:
+            res = pcg_ba.solve_ba_pcg(cam, prob, cfg.level_sigma2, n_iters=n_iters)
+        else:
+            res = schur_ba.solve_ba(cam, prob, cfg.level_sigma2, iters_a=n_iters, iters_b=0,
+                                    robust=False)
+        return m._replace(
+            kf_pose=torch.where((prob.cam_valid & ~prob.cam_fixed)[:, None, None], res.poses,
+                                m.kf_pose),
+            pt_pos=torch.where(m.pt_valid[:, None], res.points, m.pt_pos))

@@ -28,6 +28,7 @@ import torch
 
 from ..geometry import se3
 from ..parallel import distributed, sharded_ba
+from ..utils import spans
 from .schur_ba import (BAProblem, BAResult, Lin, _assemble_err, _chol3x3, _damped, _edges,
                        _tri_inv_t, _weights)
 
@@ -37,11 +38,12 @@ def _precompute(lin: Lin, lam):
     L L^T from the Cholesky factor of each damped block (schur_ba's
     factorization: the adjugate inverse of a thin-parallax block is not
     numerically SPD)."""
-    eye3 = torch.eye(3, dtype=torch.float32, device=lin.Hpp.device)
-    Hpp_d = torch.where(lin.pt_on[:, None, None], _damped(lin.Hpp, lam), eye3)
-    L = _tri_inv_t(_chol3x3(Hpp_d))
-    return dict(We=lin.We, Hpp_inv=L @ L.transpose(-1, -2), Hcc_d=_damped(lin.Hcc, lam),
-                bc=lin.bc, bp=lin.bp, pt_on=lin.pt_on)
+    with spans.span("solvers.pcg.precompute"):
+        eye3 = torch.eye(3, dtype=torch.float32, device=lin.Hpp.device)
+        Hpp_d = torch.where(lin.pt_on[:, None, None], _damped(lin.Hpp, lam), eye3)
+        L = _tri_inv_t(_chol3x3(Hpp_d))
+        return dict(We=lin.We, Hpp_inv=L @ L.transpose(-1, -2), Hcc_d=_damped(lin.Hcc, lam),
+                    bc=lin.bc, bp=lin.bp, pt_on=lin.pt_on)
 
 
 def _push_to_points(pre, edges, x):
@@ -81,66 +83,72 @@ def _reduced_rhs(pre, edges, free, group=None):
 
 def _pcg(pre, edges, b, free, n_iters: int, group=None):
     """Block-Jacobi preconditioned CG on the reduced camera system."""
-    eye6 = torch.eye(6, dtype=torch.float32, device=b.device)
-    M = torch.where(free[:, None, None], _sum(pre["Hcc_d"], group), eye6)
-    Minv = torch.linalg.inv_ex(M + 1e-8 * eye6)[0]
+    with spans.span("solvers.pcg.cg"):
+        eye6 = torch.eye(6, dtype=torch.float32, device=b.device)
+        M = torch.where(free[:, None, None], _sum(pre["Hcc_d"], group), eye6)
+        Minv = torch.linalg.inv_ex(M + 1e-8 * eye6)[0]
 
-    def apply_M(r):
-        return torch.einsum("cij,cj->ci", Minv, r)
+        def apply_M(r):
+            return torch.einsum("cij,cj->ci", Minv, r)
 
-    tiny = torch.full((), 1e-20, dtype=torch.float32, device=b.device)
-    x = torch.zeros_like(b)
-    r = b
-    z = apply_M(r)
-    p = z
-    rz = (r * z).sum()
-    for _ in range(n_iters):
-        Ap = _schur_matvec(pre, edges, p, free, group)
-        pAp = (p * Ap).sum()
-        alpha = rz / torch.where(torch.abs(pAp) < 1e-20, tiny, pAp)
-        x = x + alpha * p
-        r = r - alpha * Ap
+        tiny = torch.full((), 1e-20, dtype=torch.float32, device=b.device)
+        x = torch.zeros_like(b)
+        r = b
         z = apply_M(r)
-        rz_new = (r * z).sum()
-        beta = rz_new / torch.where(torch.abs(rz) < 1e-20, tiny, rz)
-        p = z + beta * p
-        rz = rz_new
-    return x
+        p = z
+        rz = (r * z).sum()
+        for _ in range(n_iters):
+            Ap = _schur_matvec(pre, edges, p, free, group)
+            pAp = (p * Ap).sum()
+            alpha = rz / torch.where(torch.abs(pAp) < 1e-20, tiny, pAp)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = apply_M(r)
+            rz_new = (r * z).sum()
+            beta = rz_new / torch.where(torch.abs(rz) < 1e-20, tiny, rz)
+            p = z + beta * p
+            rz = rz_new
+        return x
 
 
 def _step(pre, edges, free, cg_iters: int, group=None):
     """The camera step by PCG, then the landmarks back-substituted."""
-    dx_c = _pcg(pre, edges, _reduced_rhs(pre, edges, free, group), free, cg_iters, group)
-    v = _push_to_points(pre, edges, dx_c)
-    dx_p = torch.einsum("qij,qj->qi", pre["Hpp_inv"], pre["bp"] - v)
-    return dx_c, torch.where(pre["pt_on"][:, None], dx_p, torch.zeros_like(dx_p))
+    with spans.span("solvers.pcg.step"):
+        dx_c = _pcg(pre, edges, _reduced_rhs(pre, edges, free, group), free, cg_iters, group)
+        v = _push_to_points(pre, edges, dx_c)
+        dx_p = torch.einsum("qij,qj->qi", pre["Hpp_inv"], pre["bp"] - v)
+        return dx_c, torch.where(pre["pt_on"][:, None], dx_p, torch.zeros_like(dx_p))
 
 
 def _solve(cam, prob: BAProblem, level_sigma2, n_iters: int, cg_iters: int, robust: bool,
            group) -> BAResult:
     """The LM loop of `solve_ba_pcg`; with a process group, prob is this
     rank's block of points and the result that block's."""
-    inv_sigma2, base_mask, delta2 = _weights(prob, level_sigma2)
-    mask = base_mask.to(torch.float32)
-    free = prob.cam_valid & ~prob.cam_fixed
-    edges = _edges(prob, inv_sigma2)
+    with spans.span("solvers.pcg"):
+        with spans.span("solvers.pcg.edges"):
+            inv_sigma2, base_mask, delta2 = _weights(prob, level_sigma2)
+            mask = base_mask.to(torch.float32)
+            free = prob.cam_valid & ~prob.cam_fixed
+            edges = _edges(prob, inv_sigma2)
 
-    poses, points = prob.poses, prob.points
-    lin = _assemble_err(cam, prob, edges, poses, points, mask, robust, group)
-    lam = torch.full((), 1e-4, dtype=torch.float32, device=poses.device)
-    for _ in range(n_iters):
-        dx_c, dx_p = _step(_precompute(lin, lam), edges, free, cg_iters, group)
-        poses_new = se3.retract(poses, dx_c)
-        points_new = points + dx_p
-        lin_new = _assemble_err(cam, prob, edges, poses_new, points_new, mask, robust, group)
-        accept = lin_new.err < lin.err         # False for NaN: the step is rejected
-        poses = torch.where(accept, poses_new, poses)
-        points = torch.where(accept, points_new, points)
-        lin = Lin(*(torch.where(accept, a, b) for a, b in zip(lin_new, lin)))
-        lam = torch.where(accept, torch.clamp(lam * 0.3, min=1e-9),
-                          torch.clamp(lam * 5.0, max=1e4))
-    inlier = base_mask & (lin.chi2 <= delta2) & lin.depth_ok
-    return BAResult(poses=poses, points=points, edge_inlier=inlier, chi2=lin.chi2)
+        poses, points = prob.poses, prob.points
+        lin = _assemble_err(cam, prob, edges, poses, points, mask, robust, group)
+        lam = torch.full((), 1e-4, dtype=torch.float32, device=poses.device)
+        for _ in range(n_iters):
+            dx_c, dx_p = _step(_precompute(lin, lam), edges, free, cg_iters, group)
+            poses_new = se3.retract(poses, dx_c)
+            points_new = points + dx_p
+            lin_new = _assemble_err(cam, prob, edges, poses_new, points_new, mask, robust, group)
+            accept = lin_new.err < lin.err         # False for NaN: the step is rejected
+            spans.count("solvers.pcg.lm_tried")
+            spans.count("solvers.pcg.lm_kept", accept)
+            poses = torch.where(accept, poses_new, poses)
+            points = torch.where(accept, points_new, points)
+            lin = Lin(*(torch.where(accept, a, b) for a, b in zip(lin_new, lin)))
+            lam = torch.where(accept, torch.clamp(lam * 0.3, min=1e-9),
+                              torch.clamp(lam * 5.0, max=1e4))
+        inlier = base_mask & (lin.chi2 <= delta2) & lin.depth_ok
+        return BAResult(poses=poses, points=points, edge_inlier=inlier, chi2=lin.chi2)
 
 
 def solve_ba_pcg(cam, prob: BAProblem, level_sigma2, n_iters: int = 10, cg_iters: int = 50,

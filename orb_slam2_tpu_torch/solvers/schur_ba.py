@@ -30,6 +30,7 @@ import torch
 from ..geometry import se3
 from ..ops import cuda_ba
 from ..parallel import distributed
+from ..utils import spans
 from ..utils.config import device_cache, device_table
 from . import reproj
 
@@ -102,8 +103,9 @@ def _assemble(cam, prob: BAProblem, edges: _Edges, poses, points, edge_mask,
     (`cuda_ba.ba_assemble`). Damping and the solve live in `_solve_step`,
     so a rejected step retries with a larger lambda without another edge
     pass."""
-    return Lin(*cuda_ba.ba_assemble(cam, poses, points, prob.pt_valid, edges, edge_mask,
-                                    robust))
+    with spans.span("solvers.assemble"):
+        return Lin(*cuda_ba.ba_assemble(cam, poses, points, prob.pt_valid, edges, edge_mask,
+                                        robust))
 
 
 # The least pivot of a point block's Cholesky, relative to its diagonal
